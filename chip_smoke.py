@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the gill_tpu_torch main path once on one NVIDIA GPU (H100).
+"""Drives the gill_tpu_torch paths once on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -8,25 +8,55 @@
 2. Builds the hand-written kernels from gill_tpu_torch/csrc/*.cu with nvcc
    (one process per source, all at once) into gill_tpu_torch/csrc/build/.
 3. Kernel phase: every kernel against its plain PyTorch version at each
-   shape the main path gives it (max abs error against a stated tolerance,
-   median CUDA-event times of both).
-4. Main path at full width: `load_gill` on a model_args.json for OPT-6.7B +
-   CLIP ViT-L/14 + SD v1.5 (512 x 512, 50-step PNDM, CFG 7.5) with random
-   weights made on the device from a seeded torch.Generator, a random
+   shape its paths give it: max abs error against a stated tolerance, the
+   CUDA-event time of both (the device is kept busy while the host queues
+   the launches, so host overhead is not timed), the least time the card
+   could take (bytes over 3.35 TB/s or operations over the peak rate of
+   their type, whichever is larger) and, where one PyTorch call computes
+   the same function, that call's time.
+4. Main path (slice 1) at full width: `load_gill` on a model_args.json for
+   OPT-6.7B + CLIP ViT-L/14 + SD v1.5 (512 x 512, 50-step PNDM, CFG 7.5) with
+   random weights made on the device from a seeded torch.Generator, a random
    CC3M-sized retrieval index (2.9M x 256 fp32, on the device; its paths
    are not URLs, so fetching fails at once) and a random decision MLP.
    Two requests through `generate_for_images_and_texts`: (a) an image and
    a short question (text route); (b) a >= 256-token dialogue with
    gen_scale_factor=1e6, which forces [IMG] through retrieval, the decision
-   MLP, GILLMapper, SD and the CLIP re-rank. Kernel launch counts are set
-   to 0 just before and read just after; both kernels must have launched.
-5. Checks: finite outputs of the expected shapes; request (a) gives the
+   MLP, GILLMapper, SD and the CLIP re-rank.
+5. Serving (slice 2), over the same model with its LM quantized to W8
+   (`GILL(..., lm_weight_precision="w8")`, per layer on the device):
+   (A) `DecodeEngine` (16 slots, max_seq 512, chunk 32, bf16 KV pool)
+       `run_pipelined` over bench.py's bench_serve trace (48 requests,
+       RandomState(7), prompts U[16,240], generations U[16,192]):
+       generated tokens/s, ms a decode step with the valid-prefix kernel
+       and with the plain decode path, the device's busy share over one
+       profiled chunk;
+   (B) `generate_for_images_and_texts_batch` (8 slots, chunk 16): 8 prompts
+       on the text route, then 2 with gen_scale_factor=1e6 through the tap
+       ring, retrieval, the decision MLP, GILLMapper, SD and the re-rank;
+   (C) `DecodeEngine(kv_dtype=torch.int8)` on 16 requests of the trace
+       (the plain int8 decode path).
+   Every path is driven with the launch counts set to 0 just before and
+   read just after; each kernel of a path must have launched in it.
+6. Checks: finite outputs of the expected shapes; request (a) gives the
    same tokens with every kernel swapped for its plain version; CLIP, the
-   OPT prefill, one full-width UNet step and the VAE decode agree with
-   their plain-version runs within stated tolerances.
+   OPT prefill, one full-width UNet step, the VAE decode and one W8 decode
+   step of phase A agree with their plain-version runs within stated
+   tolerances.
 
 The last three lines of standard output are the {"kernels": [...]} JSON
 line, the nvidia-smi name/power line and {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --ab-main-path OTHER_ROOT [ROUNDS] [ORDER]
+
+instead compares two trees on one card: each tree's own `main_path` (step
+4 and its checks), each run in a fresh process, in ORDER ("o" the other
+tree, "t" this one; default "otto"), ROUNDS times (default 2), then in the same process ten timed
+full-width UNet calls and one under torch.profiler. OTHER_ROOT holds
+another checkout, e.g. the parent commit unpacked with `git archive` into
+a directory that .gitignore lists. It prints one "AB" JSON line per run
+(request times, stage means, the UNet calls' host-clock times and device
+profile, failures) and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -40,14 +70,24 @@ import sys
 import tempfile
 import time
 
+T_START = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 FLASH_SRC = "gill_tpu_torch/csrc/flash_attn.cu"
 GEGLU_SRC = "gill_tpu_torch/csrc/geglu.cu"
+W8_SRC = "gill_tpu_torch/csrc/w8_matmul.cu"
+DECODE_SRC = "gill_tpu_torch/csrc/decode_attn.cu"
 FLASH_REPLACES = ("gill_tpu/ops/attention.py:271 flash_attention + "
                   "gill_tpu/ops/attention.py:392 flash_attention_bthd")
 GEGLU_REPLACES = "gill_tpu/ops/geglu.py:110 geglu_ff"
+W8_REPLACES = ("gill_tpu/ops/w8_matmul.py:125 w8_matmul + "
+               "gill_tpu/ops/w8_matmul.py:52 w8_matmul_stacked")
+DECODE_REPLACES = "gill_tpu/ops/decode_attn.py:140 prefix_decode_attention"
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense)
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 
 
 def log(*a):
@@ -62,21 +102,29 @@ def smi_line() -> str:
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
-    """Median milliseconds of `fn` over `reps` launches (CUDA events),
-    after one warm-up."""
+    """Mean device milliseconds of `fn` over `reps` back-to-back calls
+    between two CUDA events, after one warm-up. The device first spins
+    ~10 ms (torch.cuda._sleep) while the host queues the calls, so the
+    host's launch overhead is not in the time."""
     fn()
     torch.cuda.synchronize()
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def bound(nbytes: float, flops: float, kind: str):
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = flops / PEAK_FLOPS[kind]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -121,12 +169,75 @@ def geglu_tol(ref) -> float:
     return 4.0 * 2.0 ** -7 * float(ref.abs().max())
 
 
+# (site, M, K, N, dtype): the W8 matmul's calls on the serving paths —
+# OPT-6.7B decode at 16 (phase A) and 8 (phase B) slots, a single-request
+# prefill wave (M = bucket <= 256 takes the kernel), and fp32 x at M = 1
+# (the sequential decode of a W8 model)
+W8_SHAPES = [(f"decode{m}_{name}", m, k, n, "bfloat16")
+             for m in (16, 8)
+             for name, k, n in (("qkvo", 4096, 4096), ("fc1", 4096, 16384),
+                                ("fc2", 16384, 4096))]
+W8_SHAPES += [("prefill256_fc1", 256, 4096, 16384, "bfloat16")]
+W8_SHAPES += [(f"seq_fp32_{name}", 1, k, n, "float32")
+              for name, k, n in (("qkvo", 4096, 4096), ("fc1", 4096, 16384),
+                                 ("fc2", 16384, 4096))]
+# (B, S): the decode kernel's calls (slots x read window), H 32, D 128
+DECODE_SHAPES = [(16, 256), (16, 512), (8, 256), (8, 512)]
+
+
+def out_tol(torch, ref) -> float:
+    """Two bf16 ulps of the largest output magnitude for bf16 outputs (both
+    sides round one fp32 value to bf16, the sums before it differ in
+    order); 1e-5 of it for fp32 outputs."""
+    top = float(ref.float().abs().max())
+    return (2.0 * 2.0 ** -7 if ref.dtype == torch.bfloat16 else 1e-5) * top
+
+
+def per_row_err(torch, out, ref):
+    """Per batch row: the largest |out - ref| and that row's own tolerance,
+    two bf16 ulps of the row's largest |ref| for bf16 outputs, 1e-5 of it
+    for fp32. A decode row averages its valid cache rows of v, so its
+    output shrinks as its prefix grows, while a parked row returns its own
+    v1; a tolerance from the whole batch's largest output would be set by
+    the parked row and pass a wrong long row."""
+    unit = 2.0 * 2.0 ** -7 if ref.dtype == torch.bfloat16 else 1e-5
+    err = (out.float() - ref.float()).abs().flatten(1).amax(1)
+    return err, unit * ref.float().abs().flatten(1).amax(1)
+
+
+def _flash_pairs(t: int, s: int, causal: bool) -> int:
+    """(query, key) pairs a causal bottom-right mask leaves visible."""
+    if not causal:
+        return t * s
+    return sum(min(s, i + s - t + 1) for i in range(t))
+
+
 def kernel_phase(torch, dev):
+    import torch.nn.functional as F
+
     from gill_tpu_torch.ops.attention import flash_attention, flash_attention_ref
+    from gill_tpu_torch.ops.decode_attn import (prefix_decode_attention,
+                                                prefix_decode_attention_ref)
     from gill_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ref
+    from gill_tpu_torch.ops.w8_matmul import w8_matmul, w8_matmul_ref
 
     g = torch.Generator(dev).manual_seed(1234)
     rows, failures = [], []
+
+    def record(row, err, tol, ok=None, note=""):
+        """`ok` defaults to err <= tol; a per-row check passes its own."""
+        row["max_abs_err"], row["tol"] = err, tol
+        rows.append(row)
+        lib = row["library_ms"]
+        log(f"kernel {row['name']} {row['site']}: err {err:.3e} (tol "
+            f"{tol:.3e}{note}) {row['ms']:.4f} ms vs plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})"
+            + ("" if lib is None else f", library {lib:.4f} ms"))
+        if not (err <= tol if ok is None else ok):
+            failures.append(f"{row['name']} {row['site']}: {err} > {tol}"
+                            f"{note}")
+
     for site, b, t, s, h, d, dt, causal in FLASH_SHAPES:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(b, n, h, d, device=dev, generator=g).to(dtype)
@@ -135,24 +246,28 @@ def kernel_phase(torch, dev):
         ref = flash_attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
-        rel = err / max(float(ref.float().abs().max()), 1e-30)
         tol = flash_tol(torch, dtype, ref.float())
         reps = 20 if t * s < 4096 * 4096 else 8
-        ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=causal),
-                     reps)
-        plain_ms = cuda_ms(torch, lambda: flash_attention_ref(
-            q, k, v, causal=causal), reps)
-        rows.append({"name": "flash_attention", "site": site, "route": "cuda",
-                     "source": FLASH_SRC, "replaces": FLASH_REPLACES,
-                     "shape": f"q({b},{t},{h},{d}) kv({b},{s},{h},{d}) {dt}"
-                              f"{' causal' if causal else ''}",
-                     "max_abs_err": err, "rel_err": rel, "tol": tol,
-                     "ms": ms, "plain_ms": plain_ms})
-        log(f"kernel flash_attention {site}: err {err:.3e} (tol {tol:.3e}) "
-            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms")
-        if not err <= tol:
-            failures.append(f"flash_attention {site}: {err} > {tol}")
-        del q, k, v, out, ref
+        esize = q.element_size()
+        bms, by = bound((2 * b * t * h * d + 2 * b * s * h * d) * esize,
+                        4.0 * b * h * d * _flash_pairs(t, s, causal),
+                        "fp32" if dtype == torch.float32 else "bf16")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        row = {"name": "flash_attention", "site": site, "route": "cuda",
+               "source": FLASH_SRC, "replaces": FLASH_REPLACES,
+               "shape": f"q({b},{t},{h},{d}) kv({b},{s},{h},{d}) {dt}"
+                        f"{' causal' if causal else ''}",
+               "ms": cuda_ms(torch, lambda: flash_attention(
+                   q, k, v, causal=causal), reps),
+               "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(
+                   q, k, v, causal=causal), reps),
+               "bound_ms": bms, "bound_by": by,
+               # the same function in one PyTorch call (T == S or no mask
+               # at every shape, so SDPA's top-left causal alignment agrees)
+               "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=causal), reps)}
+        record(row, err, tol)
+        del q, k, v, qt, kt, vt, out, ref
     for site, m, d in GEGLU_SHAPES:
         bf = torch.bfloat16
         x = torch.randn(m, d, device=dev, generator=g).to(bf)
@@ -166,19 +281,82 @@ def kernel_phase(torch, dev):
         ref = geglu_ff_ref(x, w1, b1, w2, b2)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
-        rel = err / max(float(ref.float().abs().max()), 1e-30)
-        tol = geglu_tol(ref.float())
-        ms = cuda_ms(torch, lambda: geglu_ff(x, w1, b1, w2, b2), 20)
-        plain_ms = cuda_ms(torch, lambda: geglu_ff_ref(x, w1, b1, w2, b2), 20)
-        rows.append({"name": "geglu_ff", "site": site, "route": "cuda",
-                     "source": GEGLU_SRC, "replaces": GEGLU_REPLACES,
-                     "shape": f"x({m},{d}) bfloat16", "max_abs_err": err,
-                     "rel_err": rel, "tol": tol, "ms": ms,
-                     "plain_ms": plain_ms})
-        log(f"kernel geglu_ff {site}: err {err:.3e} (tol {tol:.3e}) "
-            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms")
-        if not err <= tol:
-            failures.append(f"geglu_ff {site}: {err} > {tol}")
+        bms, by = bound((2 * m * d + 12 * d * d + 9 * d) * 2,
+                        24.0 * m * d * d, "bf16")
+        row = {"name": "geglu_ff", "site": site, "route": "cuda",
+               "source": GEGLU_SRC, "replaces": GEGLU_REPLACES,
+               "shape": f"x({m},{d}) bfloat16",
+               "ms": cuda_ms(torch, lambda: geglu_ff(x, w1, b1, w2, b2), 20),
+               "plain_ms": cuda_ms(torch, lambda: geglu_ff_ref(
+                   x, w1, b1, w2, b2), 20),
+               "bound_ms": bms, "bound_by": by, "library_ms": None}
+        record(row, err, geglu_tol(ref.float()))
+    for site, m, kdim, n, dt in W8_SHAPES:
+        dtype = getattr(torch, dt)
+        x = torch.randn(m, kdim, device=dev, generator=g).to(dtype)
+        w8 = torch.randint(-127, 128, (kdim, n), device=dev, generator=g,
+                           dtype=torch.int8)
+        ws = 1e-4 + 1e-3 * torch.rand(n, device=dev, generator=g)
+        bias = (0.1 * torch.randn(n, device=dev, generator=g)).to(dtype)
+        out = w8_matmul(x, w8, ws, bias)
+        ref = w8_matmul_ref(x, w8, ws, bias)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        esize = x.element_size()
+        bms, by = bound(kdim * n + (m * kdim + m * n + n) * esize + 4 * n,
+                        2.0 * m * kdim * n,
+                        "fp32" if dtype == torch.float32 else "bf16")
+        row = {"name": "w8_matmul", "site": site, "route": "cuda",
+               "source": W8_SRC, "replaces": W8_REPLACES,
+               "shape": f"x({m},{kdim}) {dt} w8({kdim},{n})",
+               "ms": cuda_ms(torch, lambda: w8_matmul(x, w8, ws, bias), 20),
+               "plain_ms": cuda_ms(torch, lambda: w8_matmul_ref(
+                   x, w8, ws, bias), 20),
+               "bound_ms": bms, "bound_by": by, "library_ms": None}
+        record(row, err, out_tol(torch, ref))
+        del x, w8, out, ref
+    h, d = 32, 128
+    for b, s in DECODE_SHAPES:
+        bf = torch.bfloat16
+        # a read window of a larger pool, as the engines pass it
+        pool = torch.randn(2, b, 512, h, d, device=dev, generator=g).to(bf)
+        k, v = pool[0, :, :s], pool[1, :, :s]
+        q, k1, v1 = (torch.randn(b, 1, h, d, device=dev, generator=g).to(bf)
+                     for _ in range(3))
+        lens = torch.randint(0, s + 1, (b,), device=dev, generator=g,
+                             dtype=torch.int32)
+        lens[0], lens[-1] = 0, s          # a parked slot and a full window
+        scale = d ** -0.5
+        out = prefix_decode_attention(q, k, v, lens, k1, v1, scale=scale)
+        ref = prefix_decode_attention_ref(q, k, v, lens, k1, v1, scale=scale)
+        torch.cuda.synchronize()
+        # each row against its own tolerance (per_row_err); the parked row
+        # (length 0) must be exactly its own v1 (weight exp(0) = 1, sum 1)
+        err_b, tol_b = per_row_err(torch, out, ref)
+        worst = int((err_b / tol_b.clamp_min(1e-30)).argmax())
+        parked_exact = bool(torch.equal(out[0], v1[0]))
+        n_rows = int(lens.sum())
+        bms, by = bound(n_rows * h * d * 2 * 2 + 4 * b * h * d * 2 + 4 * b,
+                        4.0 * n_rows * h * d, "fp32")
+        row = {"name": "prefix_decode_attention", "site": f"b{b}_s{s}",
+               "route": "cuda", "source": DECODE_SRC,
+               "replaces": DECODE_REPLACES,
+               "shape": f"q({b},1,{h},{d}) cache({b},{s},{h},{d}) bfloat16, "
+                        f"{n_rows} valid rows",
+               "ms": cuda_ms(torch, lambda: prefix_decode_attention(
+                   q, k, v, lens, k1, v1, scale=scale), 20),
+               "plain_ms": cuda_ms(torch, lambda: prefix_decode_attention_ref(
+                   q, k, v, lens, k1, v1, scale=scale), 20),
+               "bound_ms": bms, "bound_by": by, "library_ms": None,
+               "tol_rule": "per row", "worst_row": worst,
+               "worst_row_err": float(err_b[worst]),
+               "parked_row_exact": parked_exact}
+        record(row, float(err_b.max()), float(tol_b[worst]),
+               ok=bool((err_b <= tol_b).all()) and parked_exact,
+               note=f" of row {worst}, the nearest its own limit at "
+                    f"{float(err_b[worst]):.3e}; rows {lens.tolist()}; "
+                    f"parked row exact: {parked_exact}")
+        del pool, k, v
     return rows, failures
 
 
@@ -188,24 +366,52 @@ def kernel_phase(torch, dev):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Swaps every kernel of the path for its plain PyTorch version (the
+    """Swaps every kernel of the paths for its plain PyTorch version (the
     reference runs of the checks below; the library itself never does)."""
     from gill_tpu_torch.models.sd import unet as unet_mod
     from gill_tpu_torch.ops import attention as attn_mod
+    from gill_tpu_torch.ops import decode_attn
+    from gill_tpu_torch.ops import w8_matmul as w8_mod
     from gill_tpu_torch.ops.geglu import geglu_ff_ref
 
-    saved = attn_mod.flash_attention, unet_mod.geglu_ff
+    saved = (attn_mod.flash_attention, unet_mod.geglu_ff, w8_mod.w8_matmul,
+             decode_attn.prefix_decode_attention)
 
     def flash_plain(q, k, v, *, causal=False, scale=None, kv_len=None,
                     fast=False):
         return attn_mod.flash_attention_ref(q, k, v, causal=causal,
                                             scale=scale, kv_len=kv_len)
 
-    attn_mod.flash_attention, unet_mod.geglu_ff = flash_plain, geglu_ff_ref
+    (attn_mod.flash_attention, unet_mod.geglu_ff, w8_mod.w8_matmul,
+     decode_attn.prefix_decode_attention) = (
+        flash_plain, geglu_ff_ref, w8_mod.w8_matmul_ref,
+        decode_attn.prefix_decode_attention_ref)
     try:
         yield
     finally:
-        attn_mod.flash_attention, unet_mod.geglu_ff = saved
+        (attn_mod.flash_attention, unet_mod.geglu_ff, w8_mod.w8_matmul,
+         decode_attn.prefix_decode_attention) = saved
+
+
+KERNELS = ("flash_attention", "geglu_ff", "w8_matmul",
+           "prefix_decode_attention")
+
+
+def _kernel_fns():
+    from gill_tpu_torch.ops import attention, decode_attn, geglu, w8_matmul
+
+    return {"flash_attention": attention.flash_attention,
+            "geglu_ff": geglu.geglu_ff, "w8_matmul": w8_matmul.w8_matmul,
+            "prefix_decode_attention": decode_attn.prefix_decode_attention}
+
+
+def zero_launches():
+    for fn in _kernel_fns().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _kernel_fns().items()}
 
 
 class PhaseTimer:
@@ -297,8 +503,6 @@ def main_path(torch, dev):
     from gill_tpu_torch.models import opt as opt_mod
     from gill_tpu_torch.models.sd import unet as unet_mod
     from gill_tpu_torch.models.sd import vae as vae_mod
-    from gill_tpu_torch.ops.attention import flash_attention
-    from gill_tpu_torch.ops.geglu import geglu_ff
 
     report, failures = {}, []
     t0 = time.perf_counter()
@@ -333,8 +537,7 @@ def main_path(torch, dev):
     timer.wrap(unet_mod, "apply", lambda *a, **k: "unet_step")
     timer.wrap(vae_mod, "decode", lambda *a, **k: "vae_decode")
 
-    flash_attention.launches = 0
-    geglu_ff.launches = 0
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out_a = model.generate_for_images_and_texts(req_a, num_words=32)
@@ -345,8 +548,7 @@ def main_path(torch, dev):
         [prompt_b], num_words=16, gen_scale_factor=1e6)
     torch.cuda.synchronize()
     report["request_b_s"] = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "geglu_ff": geglu_ff.launches}
+    launches = read_launches()
     report["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
     timer.restore()
     model.sd_pipe.decode_latents = orig_decode
@@ -356,8 +558,8 @@ def main_path(torch, dev):
                          {k: (v if k == "decision" else len(v))
                           for k, v in o.items()} for o in out_b])
     log("main-path launches:", launches)
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("flash_attention", "geglu_ff"):
+        if launches[name] <= 0:
             failures.append(f"{name} was not launched on the main path")
 
     # outputs: a caption for (a); for (b) the [IMG] run, a decision and one
@@ -459,6 +661,379 @@ def check_against_plain(torch, dev, model, req_a, out_a, prompt_b, report):
     return failures
 
 
+# ---------------------------------------------------------------------------
+# serving (slice 2)
+# ---------------------------------------------------------------------------
+
+def serve_trace(n: int, seed: int = 7):
+    """bench.py bench_serve's trace: prompt lengths U[16,240] of random ids,
+    generation lengths U[16,192]."""
+    import numpy as np
+
+    from gill_tpu_torch.serve.engine import ServeRequest
+
+    rng = np.random.RandomState(seed)
+    return [ServeRequest(
+        uid=i, prompt=rng.randint(2, 1000, size=int(rng.randint(16, 241)))
+        .tolist(), max_new_tokens=int(rng.randint(16, 193))) for i in range(n)]
+
+
+def device_profile(torch, fn, top: int = 8) -> dict:
+    """torch.profiler's device trace of `fn`: the share of the device's
+    active span (first kernel start to last kernel end) in which some
+    kernel or copy ran (None when the trace holds no device events), the
+    number of device events, and the `top` kernels by device time (us)."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    if not spans:
+        return {"busy_share": None, "device_events": 0, "top_us": {}}
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    by_name = Counter()
+    for e in events:
+        by_name[e.name[:60]] += e.time_range.elapsed_us()
+    return {"busy_share": busy / max(cur_e - spans[0][0], 1e-9),
+            "device_events": len(spans), "active_span_us":
+            cur_e - spans[0][0], "busy_us": busy,
+            "top_us": dict(by_name.most_common(top))}
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_a(torch, lm8, cfg, failures):
+    """The plain-LM serving engine on the W8 LM over bench_serve's trace."""
+    from gill_tpu_torch.models import opt as opt_mod
+    from gill_tpu_torch.ops import attention as attn_mod
+    from gill_tpu_torch.serve.engine import DecodeEngine, ServeRequest
+
+    rep = {}
+    eng = DecodeEngine(lm8, cfg, slots=16, max_seq=512, chunk=32,
+                       prefill_buckets=(64, 128, 256), kv_dtype=torch.bfloat16)
+    _, rep["warmup_s"] = timed(torch, eng.warmup)
+    eng.run([ServeRequest(uid=0, prompt=[5] * p, max_new_tokens=4)
+             for p in (20, 100, 200)])
+    reqs = serve_trace(48)
+    n_tok = sum(r.max_new_tokens for r in reqs)
+    s0 = dict(eng.stats)
+    zero_launches()
+    out, dt = timed(torch, lambda: eng.run_pipelined(list(reqs)))
+    launches = read_launches()
+    rep["generated_tokens"] = n_tok
+    rep["wall_s"] = dt
+    rep["tokens_per_s"] = n_tok / dt
+    rep["stats"] = {k: eng.stats[k] - s0[k] for k in eng.stats}
+    rep["launches"] = launches
+    got = sum(len(v) for v in out.values())
+    if got != n_tok or len(out) != len(reqs):
+        failures.append(f"phase A generated {got} of {n_tok} tokens")
+    if any(not 0 <= t < cfg.vocab_size + 64 for v in out.values() for t in v):
+        failures.append("phase A emitted an id outside the vocabulary")
+    for name in ("w8_matmul", "prefix_decode_attention"):
+        if launches[name] <= 0:
+            failures.append(f"{name} was not launched in serving phase A")
+
+    # a steady pool: the trace's first 16 prompts, long budgets; each
+    # measurement starts from the same refilled state, in turns
+    steady = [ServeRequest(uid=i, prompt=r.prompt, max_new_tokens=192)
+              for i, r in enumerate(reqs[:16])]
+
+    def refilled():
+        eng._reset_pool()
+        eng._refill(list(steady))
+        torch.cuda.synchronize()
+
+    def chunk_ms(plain_decode: bool) -> float:
+        refilled()
+        saved = attn_mod.prefix_decode_eligible
+        if plain_decode:
+            attn_mod.prefix_decode_eligible = lambda *a, **k: False
+        try:
+            _, t = timed(torch, lambda: eng._run_chunk().numpy())
+        finally:
+            attn_mod.prefix_decode_eligible = saved
+        return 1e3 * t / eng.chunk
+
+    order = (False, True, True, False)
+    times = [chunk_ms(p) for p in order]
+    rep["decode_step_ms_with_k6"] = [t for t, p in zip(times, order) if not p]
+    rep["decode_step_ms_plain_decode"] = [t for t, p in zip(times, order) if p]
+    refilled()
+    prof = device_profile(torch, lambda: eng._run_chunk().numpy())
+    rep["profile_one_chunk"] = prof
+    if prof["busy_share"] is not None:
+        # the profiler slows the host, so its own busy share reads low: set
+        # the device time a step against the unprofiled step time as well
+        steps_ms = sorted(rep["decode_step_ms_with_k6"])
+        rep["device_ms_per_step"] = prof["busy_us"] / 1e3 / eng.chunk
+        rep["device_share_of_unprofiled_step"] = \
+            rep["device_ms_per_step"] / steps_ms[0]
+
+    # one full-width decode step, kernels vs plain versions, same state:
+    # bf16 activations through 32 layers, each kernel rounding its fp32
+    # sums to bf16 where the plain version rounds the same value in another
+    # summation order -> 3e-2 relative, argmax equal on >= 15 of 16 rows
+    refilled()
+    st = eng._dstate
+    emb = opt_mod.embed_tokens(lm8, st["tok"][:, None].long())
+
+    def step():
+        return opt_mod.forward(lm8, cfg, emb, cache=eng.cache,
+                               cache_pos=st["pos"],
+                               lm_head=eng._head)["logits"][:, -1]
+    a = step()
+    with plain_kernels():
+        b = step()
+    rep["decode_step_logits_rel_err"] = rel_err(torch, a, b)
+    rep["decode_step_argmax_equal_rows"] = int(
+        (a.argmax(-1) == b.argmax(-1)).sum())
+    if not rep["decode_step_logits_rel_err"] <= 3e-2:
+        failures.append(f"phase A decode step logits differ from the plain "
+                        f"versions: {rep['decode_step_logits_rel_err']}")
+    if rep["decode_step_argmax_equal_rows"] < 15:
+        failures.append(f"phase A decode step argmax equal on only "
+                        f"{rep['decode_step_argmax_equal_rows']} of 16 rows")
+
+    # whole token lists, kernels vs plain versions: the trace's first 16
+    # requests with budgets capped at 64 (the plain decode reads the whole
+    # window in fp32, so the full trace would take minutes)
+    short = [ServeRequest(uid=r.uid, prompt=r.prompt,
+                          max_new_tokens=min(r.max_new_tokens, 64))
+             for r in reqs[:16]]
+    with_k = eng.run_pipelined(list(short))
+    with plain_kernels():
+        plain = eng.run_pipelined(list(short))
+    rep["requests_equal_to_plain"] = sum(with_k[r.uid] == plain[r.uid]
+                                         for r in short) / len(short)
+    del eng
+    torch.cuda.empty_cache()
+    return rep
+
+
+def phase_b(torch, w8_model, prompt_b, failures):
+    """The batch GILL API on the W8 model: 8 prompts on the text route,
+    then 2 forced through [IMG] (tap ring, retrieval, decision, GILLMapper,
+    SD, re-rank)."""
+    import numpy as np
+    from PIL import Image
+
+    rep = {}
+    tok = w8_model.tokenizer
+    imgs = [Image.fromarray(np.random.RandomState(20 + i).randint(
+        0, 256, (224, 224, 3), dtype=np.uint8)) for i in range(4)]
+    text_batch = [
+        [imgs[0], "Q: What is in this picture?\nA:"],
+        [imgs[1], "Q: What color is the sky here?\nA:"],
+        [imgs[2], imgs[3], "Q: How do these two images differ?\nA:"],
+        [dialogue_prompt(64, tok)],
+        [dialogue_prompt(128, tok)],
+        ["A photo of"],
+        [imgs[0], "Describe this scene in detail.\n"],
+        [dialogue_prompt(200, tok)],
+    ]
+    img_batch = [[prompt_b],
+                 [imgs[1], "Show me a picture of a red canoe at sunset.\n"]]
+    images = []
+    orig_decode = w8_model.sd_pipe.decode_latents
+
+    def capture_decode(latents):
+        out = orig_decode(latents)
+        images.append(out)
+        return out
+
+    w8_model.sd_pipe.decode_latents = capture_decode
+    zero_launches()
+    try:
+        out_text, rep["text_batch_s"] = timed(
+            torch, lambda: w8_model.generate_for_images_and_texts_batch(
+                text_batch, num_words=32, slots=8, chunk=16))
+        n_img_before = len(images)
+        out_img, rep["img_batch_s"] = timed(
+            torch, lambda: w8_model.generate_for_images_and_texts_batch(
+                img_batch, num_words=16, gen_scale_factor=1e6, slots=8,
+                chunk=16))
+    finally:
+        w8_model.sd_pipe.decode_latents = orig_decode
+    rep["launches"] = read_launches()
+    for name in ("w8_matmul", "prefix_decode_attention"):
+        if rep["launches"][name] <= 0:
+            failures.append(f"{name} was not launched in serving phase B")
+    if len(out_text) != len(text_batch) or not all(
+            o and isinstance(o[0], str) for o in out_text):
+        failures.append(f"phase B text batch gave {out_text!r}")
+    rep["text_outputs"] = [o[0][:60] for o in out_text]
+    nt = w8_model.core.cfg.num_tokens
+    gen_prefix = "".join(f"[IMG{i}]" for i in range(nt))
+    forced = [len(o) == 2 and o[0].endswith(gen_prefix)
+              and isinstance(o[1], dict) and len(o[1]["gen"]) == 1
+              and o[1]["decision"][0] in ("gen", "ret") for o in out_img]
+    rep["img_runs_force_committed"] = forced
+    if len(out_img) != 2 or not all(forced):
+        failures.append(f"phase B [IMG] batch did not commit its runs: "
+                        f"{out_img!r}")
+    new_images = images[n_img_before:]
+    if len(new_images) != 2 or not all(
+            tuple(x.shape) == (1, 512, 512, 3) and bool(torch.isfinite(x).all())
+            for x in new_images):
+        failures.append("phase B gave no two finite (1, 512, 512, 3) images")
+    return rep
+
+
+def phase_c(torch, lm8, cfg, failures):
+    """A short int8-KV engine run: the plain int8 decode path on the card."""
+    from gill_tpu_torch.serve.engine import DecodeEngine, ServeRequest
+
+    rep = {}
+    eng = DecodeEngine(lm8, cfg, slots=16, max_seq=512, chunk=32,
+                       prefill_buckets=(64, 128, 256), kv_dtype=torch.int8)
+    # the trace's first 16 requests, budgets capped at 64 (the plain int8
+    # decode widens the whole window to fp32 every layer)
+    reqs = [ServeRequest(uid=r.uid, prompt=r.prompt,
+                         max_new_tokens=min(r.max_new_tokens, 64))
+            for r in serve_trace(48)[:16]]
+    zero_launches()
+    out, rep["wall_s"] = timed(torch, lambda: eng.run_pipelined(list(reqs)))
+    rep["launches"] = read_launches()
+    if rep["launches"]["w8_matmul"] <= 0:
+        failures.append("w8_matmul was not launched in serving phase C")
+    n_tok = sum(r.max_new_tokens for r in reqs)
+    rep["tokens_per_s"] = n_tok / rep["wall_s"]
+    full = all(len(out[r.uid]) == r.max_new_tokens for r in reqs)
+    in_vocab = all(0 <= t < cfg.vocab_size + 64
+                   for v in out.values() for t in v)
+    if not (full and in_vocab):
+        failures.append("phase C (int8 KV) gave short or out-of-vocabulary "
+                        "token lists")
+    del eng
+    torch.cuda.empty_cache()
+    return rep
+
+
+def serving(torch, dev, model, prompt_b):
+    from gill_tpu_torch.api import GILL
+
+    report, failures = {}, []
+    w8_model, report["quantize_s"] = timed(torch, lambda: GILL(
+        model.core, model.params, model.tokenizer, device=dev,
+        sd_pipe=model.sd_pipe, retrieval_index=model.index,
+        decision_params=model.decision_params, lm_weight_precision="w8"))
+    lm8, cfg = w8_model.params["lm"], model.core.opt_cfg
+    report["A"] = phase_a(torch, lm8, cfg, failures)
+    log("serving phase A:", json.dumps(report["A"]))
+    report["B"] = phase_b(torch, w8_model, prompt_b, failures)
+    log("serving phase B:", json.dumps(report["B"]))
+    report["C"] = phase_c(torch, lm8, cfg, failures)
+    log("serving phase C:", json.dumps(report["C"]))
+    return report, failures
+
+
+# one run of a tree's own main path, in a fresh process (argv[1]: its
+# root, argv[2]: this script, whose device_profile reads both trees), then
+# ten timed full-width UNet calls and one profiled one
+_AB_CHILD = """
+import importlib.util, json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from gill_tpu_torch.models.sd import unet as unet_mod
+from gill_tpu_torch.ops import _build
+spec = importlib.util.spec_from_file_location("chip_smoke_ab", sys.argv[2])
+me = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(me)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+_build.build_all()
+dev = torch.device("cuda", 0)
+with torch.no_grad():
+    model, _, rep, fails = cs.main_path(torch, dev)
+    pipe = model.sd_pipe
+    g = torch.Generator(dev).manual_seed(11)
+    lat = torch.randn(2, 64, 64, 4, device=dev, generator=g).bfloat16()
+    ctx = (0.5 * torch.randn(2, 77, 768, device=dev, generator=g)).bfloat16()
+    t = torch.tensor(981.0, device=dev)
+    step = lambda: unet_mod.apply(pipe.params["unet"], pipe.cfg.unet, lat, t,
+                                  ctx)
+    unet_ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        unet_ms.append(1e3 * (time.perf_counter() - t0))
+    prof = me.device_profile(torch, step, top=6)
+    # the process's host speed alone: a small CPU tensor op and pure Python
+    x = torch.zeros(16)
+    t0 = time.perf_counter()
+    for _ in range(20000):
+        x.add_(1)
+    host_op_us = (time.perf_counter() - t0) / 20000 * 1e6
+    t0 = time.perf_counter()
+    sum(range(5_000_000))
+    host_py_ms = 1e3 * (time.perf_counter() - t0)
+ph = rep["phases"]
+print("AB " + json.dumps({
+    "request_a_s": rep["request_a_s"], "request_b_s": rep["request_b_s"],
+    **{k + "_ms": ph[k]["mean_ms"] for k in ("unet_step", "opt_decode_token",
+                                              "clip_vision", "vae_decode")},
+    "unet_call_ms_min": min(unet_ms), "unet_call_ms_mean": sum(unet_ms) / 10,
+    "unet_profiled": prof, "host_cpu_op_us": host_op_us,
+    "host_python_ms": host_py_ms, "failures": fails,
+    "ptxas_if_built_here": {n: [ln.split(":", 1)[-1].strip() for ln in
+                                txt.splitlines() if "registers" in ln]
+                            for n, txt in _build.BUILD_LOG.items()}}))
+"""
+
+
+def ab_main_path(other: str, rounds: int, order: str = "otto") -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device; none is "
+                           "available")
+    other = os.path.abspath(other)
+    log(f"device: {smi_line()}")
+    ok = True
+    for i in range(rounds):
+        for name, root in [{"o": ("other", other), "t": ("this", REPO)}[c]
+                           for c in order]:
+            run = subprocess.run([sys.executable, "-c", _AB_CHILD, root,
+                                  os.path.abspath(__file__)],
+                                 cwd=root, capture_output=True, text=True)
+            line = [ln for ln in run.stdout.splitlines()
+                    if ln.startswith("AB ")]
+            if run.returncode != 0 or not line:
+                log(run.stdout[-2000:], run.stderr[-4000:])
+                raise RuntimeError(f"main path of {root} failed "
+                                   f"(rc {run.returncode})")
+            res = json.loads(line[0][3:])
+            ok = ok and not res["failures"]
+            log("AB", json.dumps({"round": i, "tree": name, "root": root,
+                                  **res}))
+    log(smi_line())
+    return 0 if ok else 1
+
+
 def main() -> int:
     import torch
 
@@ -485,11 +1060,21 @@ def main() -> int:
     with torch.no_grad():
         rows, failures = kernel_phase(torch, dev)
         torch.cuda.empty_cache()
-        _, launches, report, path_failures = main_path(torch, dev)
-    failures += path_failures
-    log("main path:", json.dumps(report))
+        model, launches, report, path_failures = main_path(torch, dev)
+        failures += path_failures
+        log("main path:", json.dumps(report))
+        serve_report, serve_failures = serving(
+            torch, dev, model, dialogue_prompt(256, model.tokenizer))
+        failures += serve_failures
+    # launches on each kernel's own paths: slice 1's main path for flash
+    # and GEGLU, serving phases A and B for the W8 and decode kernels
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        name = row["name"]
+        row["launches"] = (launches[name] if name in ("flash_attention",
+                                                      "geglu_ff")
+                           else serve_report["A"]["launches"][name]
+                           + serve_report["B"]["launches"][name])
+    log(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s")
     if failures:
         for f in failures:
             log("FAILED:", f)
@@ -503,4 +1088,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ab-main-path"]:
+        sys.exit(ab_main_path(sys.argv[2], *[f(a) for f, a in zip(
+            (int, str), sys.argv[3:5])]))
     sys.exit(main())

@@ -9,7 +9,13 @@ Decoding, the [IMG]-window hidden states, retrieval top-k, the decision
 MLP, GILLMapper and the SD denoise stay on the model's device; token ids,
 top-k results and the final images cross to the host.
 
-Not ported yet: the batched / async / online serving methods,
+`generate_for_images_and_texts_batch` serves many prompts at once over
+the continuous-batching GILL engine (serve/gill_engine.py), with the same
+per-prompt outputs. `lm_weight_precision="w8"` serves int8 LM weights
+(models/opt.py quantize_params_w8, the W8 kernel on CUDA);
+`kv_cache_precision="int8"` gives the sequential decode an int8 KV cache.
+
+Not ported yet: the async / online serving methods,
 get_log_likelihood_scores, the safety checker, the HF/diffusers weight
 loaders and the reference `.pth.tar` adapter checkpoint.
 """
@@ -35,10 +41,37 @@ from gill_tpu_torch.utils.image import truncate_caption
 IGNORE = -100
 
 
+def _run_lookup(tokens, img_runs, img0):
+    """hidden_lookup for engine-served generations: the engine's tap ring
+    holds run k in row k, so the run starting at token index i is ring row
+    `count of [IMG0] in tokens[:i]` (gill_tpu api `_run_lookup`)."""
+    def lookup(i):
+        k = int(np.sum(np.asarray(tokens)[:i] == img0))
+        return img_runs[min(k, img_runs.shape[0] - 1)][None]   # (1, nt, E)
+    return lookup
+
+
 class GILL:
     def __init__(self, core: GILLCore, params: dict, tokenizer, *, device,
                  sd_pipe=None, retrieval_index=None, decision_params=None,
-                 num_gen_images: int = 1):
+                 num_gen_images: int = 1, lm_weight_precision: str = "bf16",
+                 kv_cache_precision: str = "bf16"):
+        """lm_weight_precision: "bf16" (the parity default) or "w8" —
+        per-output-channel int8 LM weights (models/opt.py
+        quantize_params_w8). kv_cache_precision: "bf16" or "int8" — an int8
+        KV cache with per-token-per-head scales for the sequential decode
+        (the serving engines keep their own pool)."""
+        if lm_weight_precision == "w8":
+            from gill_tpu_torch.models import opt as opt_mod
+
+            params = dict(params)
+            params["lm"] = opt_mod.quantize_params_w8(params["lm"])
+        elif lm_weight_precision != "bf16":
+            raise ValueError(f"lm_weight_precision {lm_weight_precision!r}")
+        if kv_cache_precision not in ("bf16", "int8"):
+            raise ValueError(f"kv_cache_precision {kv_cache_precision!r}")
+        self.kv_int8 = kv_cache_precision == "int8"
+        self._serve_engines = {}
         self.core = core
         self.params = params
         self.tokenizer = tokenizer
@@ -105,7 +138,7 @@ class GILL:
             min_word_tokens=min_word_tokens, temperature=temperature,
             top_p=top_p, ret_scale_factor=ret_scale_factor,
             gen_scale_factor=gen_scale_factor, max_img_runs=max_num_rets,
-            generator=generator)
+            generator=generator, kv_int8=self.kv_int8)
         valid = out["valid"][0].cpu().numpy()
         tokens = out["tokens"][0].cpu().numpy()[valid]
         hidden = out["hidden"][0]                             # (S, E)
@@ -113,6 +146,91 @@ class GILL:
         return self._postprocess_generation(
             tokens, lambda i: hidden[None, i: i + nt, :], max_num_rets,
             generator, guidance_scale, num_inference_steps)
+
+    def generate_for_images_and_texts_batch(
+            self, prompts_batch: List[List], num_words: int = 32,
+            min_word_tokens: int = 0, ret_scale_factor: float = 1.0,
+            gen_scale_factor: float = 1.0, top_p: float = 1.0,
+            temperature: float = 0.0, max_num_rets: int = 1,
+            generator: Optional[torch.Generator] = None,
+            always_add_bos: bool = False, guidance_scale: float = 7.5,
+            num_inference_steps: int = 50, slots: int = 8, chunk: int = 16,
+            max_seq: Optional[int] = None):
+        """Serves MANY interleaved prompts concurrently over the
+        continuous-batching GILL engine (serve/gill_engine.py); returns
+        generate_for_images_and_texts' per-prompt outputs in input order
+        (gill_tpu api `generate_for_images_and_texts_batch`).
+        max_num_rets sizes the engine's tap ring. temperature > 0 samples
+        with per-request streams seeded from `generator`, independent of
+        slot packing, so they differ from the sequential path's draws. On
+        CUDA the engine keeps a bf16 KV pool and bf16 request embeddings;
+        on the CPU fp32, as gill_tpu does off a TPU."""
+        from gill_tpu_torch.serve.gill_engine import (GillDecodeEngine,
+                                                      GillServeRequest)
+
+        if num_words <= 0:
+            raise NotImplementedError(
+                "Generation not implemented for num_words=0.")
+        if len(self.core.cfg.text_emb_layers) != 1:
+            raise ValueError(f"inference taps one LM layer, got "
+                             f"{self.core.cfg.text_emb_layers}")
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(0)
+        scale = max(ret_scale_factor, 1.0) * max(gen_scale_factor, 1.0)
+        emb_dt = (torch.bfloat16 if self.device.type == "cuda"
+                  else torch.float32)
+        base_seed = int(torch.randint(0, 2**31 - 1, (), generator=generator,
+                                      device=generator.device))
+        reqs = []
+        for uid, prompts in enumerate(prompts_batch):
+            embs, _ = self._encode_prompts(prompts, always_add_bos)
+            reqs.append(GillServeRequest(
+                uid=uid, embs=embs[0].to(emb_dt), num_words=num_words,
+                min_word_tokens=min_word_tokens, img_scale=scale,
+                temperature=temperature, top_p=top_p,
+                seed=(base_seed + uid) % (2**31 - 1),
+                max_img_runs=max_num_rets))
+        if not reqs:
+            return []
+        nt = self.core.cfg.num_tokens
+        if max_seq is None:
+            longest = max(r.embs.shape[0] for r in reqs)
+            max_seq = -(-(longest + num_words + nt * max_num_rets) // 64) * 64
+        sampling = temperature > 0
+        # one engine per (slots, chunk, sampling): a longer batch or a
+        # deeper tap ring REPLACES it with a larger one
+        key = (slots, chunk, sampling)
+        eng = self._serve_engines.get(key)
+        if eng is None or eng.max_seq < max_seq \
+                or eng.max_runs < max_num_rets:
+            if self.kv_int8:
+                import warnings
+
+                warnings.warn("kv_cache_precision='int8' applies to the "
+                              "sequential decode path; the serving engines "
+                              "use a bf16 KV pool", stacklevel=2)
+            runs = max_num_rets
+            if eng is not None:
+                max_seq = max(max_seq, eng.max_seq)
+                runs = max(runs, eng.max_runs)
+                del self._serve_engines[key], eng    # free the old pool first
+            eng = GillDecodeEngine(
+                self.core, self.params, slots=slots, max_seq=max_seq,
+                chunk=chunk, kv_dtype=emb_dt, sampling=sampling,
+                max_img_runs=runs)
+            self._serve_engines[key] = eng
+        served = eng.run(reqs)
+
+        outputs = []
+        img0 = self.core.img_start
+        for uid in range(len(prompts_batch)):
+            res = served[uid]
+            tokens = np.asarray(res["tokens"], np.int32)
+            img_runs = torch.from_numpy(res["img_runs"]).to(self.device)
+            outputs.append(self._postprocess_generation(
+                tokens, _run_lookup(tokens, img_runs, img0), max_num_rets,
+                generator, guidance_scale, num_inference_steps))
+        return outputs
 
     def _postprocess_generation(self, tokens, hidden_lookup, max_num_rets,
                                 generator, guidance_scale,
@@ -259,10 +377,12 @@ def _to_device(tree, device, dtype=None):
     return tree_map(one, tree)
 
 
-def load_gill(model_dir: str, *, device, load_ret_embs: bool = True,
+def load_gill(model_dir: str, *, device="cuda", load_ret_embs: bool = True,
               decision_model_fn: Optional[str] = "decision_model.pth.tar",
               load_sd: bool = True, num_gen_images: int = 1,
-              dtype=torch.bfloat16, seed: int = 0) -> GILL:
+              dtype=torch.bfloat16, seed: int = 0,
+              lm_weight_precision: str = "bf16",
+              kv_cache_precision: str = "bf16") -> GILL:
     """Builds an inference GILL from a checkpoint directory: model_args.json,
     the tokenizer, the npz adapter checkpoint (`ckpt/state.npz`), the
     pickled cc3m*.npy retrieval blobs and the decision model (reference
@@ -272,7 +392,9 @@ def load_gill(model_dir: str, *, device, load_ret_embs: bool = True,
     gill_tpu's init distributions, made on `device` from a torch.Generator
     seeded with `seed`, in `dtype`; missing adapters are random too. The
     adapters stay fp32. GILL_TPU_TINY_SD=1 selects the tiny SD config (the
-    CPU smoke-test escape hatch of gill_tpu)."""
+    CPU smoke-test escape hatch of gill_tpu). The model runs on the card
+    unless `device` names another (the CPU tests pass "cpu");
+    lm_weight_precision / kv_cache_precision as in GILL."""
     from gill_tpu_torch.models import clip as clip_mod
     from gill_tpu_torch.models.sd import unet as unet_mod
     from gill_tpu_torch.models.sd import vae as vae_mod
@@ -352,4 +474,6 @@ def load_gill(model_dir: str, *, device, load_ret_embs: bool = True,
 
     return GILL(core, params, tokenizer, device=device, sd_pipe=sd_pipe,
                 retrieval_index=index, decision_params=decision_params,
-                num_gen_images=num_gen_images)
+                num_gen_images=num_gen_images,
+                lm_weight_precision=lm_weight_precision,
+                kv_cache_precision=kv_cache_precision)

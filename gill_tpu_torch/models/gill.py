@@ -154,7 +154,8 @@ class GILLCore:
                  min_word_tokens: int = 0, temperature: float = 0.0,
                  top_p: float = 1.0, ret_scale_factor: float = 1.0,
                  gen_scale_factor: float = 1.0, max_img_runs: int = 1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 kv_int8: bool = False):
         """KV-cached decoding with the reference's [IMG] logic
         (gill/models.py:443-532): [IMG1..n) banned; no [IMG0] before
         min_word_tokens sampling iterations; |logit| * ret * gen boost on
@@ -162,6 +163,9 @@ class GILLCore:
         [IMG1..n) without consuming sampling iterations. Runs at most
         num_words + (num_tokens - 1) * max_img_runs steps; steps past the
         last sampling iteration emit pad and are marked invalid.
+
+        kv_int8: an int8 KV cache with per-token-per-head scales
+        (models/opt.py init_cache).
 
         Returns tokens (B, S) int32, hidden (B, S, E) — the tapped LM
         stream (cfg.text_emb_layers[0]) at each emitted token — and
@@ -176,7 +180,7 @@ class GILLCore:
 
         lm_head = self.lm_head_table(params).to(input_embs.dtype)
         cache = opt_mod.init_cache(self.opt_cfg, b, t_in + steps, device=dev,
-                                   dtype=input_embs.dtype)
+                                   dtype=input_embs.dtype, kv_int8=kv_int8)
         pre = opt_mod.forward(params["lm"], self.opt_cfg, input_embs,
                               cache=cache, cache_pos=0, skip_logits=True)
         logits = pre["last_hidden"][:, t_in - 1].float() @ lm_head.float().t()

@@ -24,6 +24,7 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 
+from gill_tpu_torch.ops import w8_matmul as w8_ops
 
 # ---------------------------------------------------------------------------
 # tree utilities
@@ -119,8 +120,26 @@ def conv_weight_from_hwio(w_hwio: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def linear(p, x):
-    """x @ w (+ b), weight cast to x's dtype (gill_tpu nn.core.linear for
-    plain w/b leaves)."""
+    """x @ w (+ b), weight cast to x's dtype (gill_tpu nn.core.linear).
+
+    W8A16 leaves {"w8" (K, N) int8, "ws" (N,) fp32, "b"?, markers}
+    (models/opt.py quantize_params_w8): on CUDA, calls in the W8 kernel's
+    scope (`ops.w8_matmul.supported`: M <= 256 rows, K and N multiples of
+    512) with no "xla" marker take the kernel (gill_tpu: on a TPU); the
+    rest — prefill-sized M and the CPU — take the dequant form
+    x @ (w8 * ws) (+ b) in x's dtype, as gill_tpu computes it outside any
+    Pallas kernel."""
+    if "w8" in p:
+        w8 = p["w8"]
+        kdim, n = w8.shape
+        if (x.is_cuda and "xla" not in p
+                and w8_ops.supported(x.numel() // kdim, kdim, n)):
+            return w8_ops.w8_matmul(x, w8, p["ws"], p.get("b"))
+        w = w8.to(x.dtype) * p["ws"].to(x.dtype)[None, :]
+        y = torch.matmul(x, w)
+        if "b" in p:
+            y = y + p["b"].to(x.dtype)
+        return y
     y = torch.matmul(x, p["w"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(x.dtype)

@@ -5,14 +5,22 @@ Counterpart of gill_tpu/ops/attention.py. Layouts: q (B, T, H, D), k/v
 
 `dot_product_attention` keeps the JAX dispatcher's gates, with "the tensor
 lies on a CUDA device" in place of `_on_tpu()`:
-  * single-token causal decode -> `_decode_attention` (mul + reduce over the
-    cache, optional own-token `extra_kv`, scalar or per-row `kv_offset`);
+  * single-token causal decode with per-row lengths and the own token's
+    k/v, over a bf16 cache in the kernel's scope on CUDA
+    (`prefix_decode_eligible`) -> `prefix_decode_attention`
+    (csrc/decode_attn.cu, reads only each row's valid prefix);
+  * other single-token causal decode -> `_decode_attention` (mul + reduce
+    over the cache, optional own-token `extra_kv`, scalar or per-row
+    `kv_offset`, int8 caches through `kv_scales`);
   * multi-token queries with no bias / kv_offset and >= 256 keys on CUDA, or
     `impl="flash"` -> `flash_attention` (csrc/flash_attn.cu);
   * everything else -> `_xla_attention` (plain einsum + softmax).
-The JAX package's default-off decode variants (the Pallas prefix-decode
-kernel behind GILL_PREFIX_DECODE_MIN and the chunked valid-prefix decode
-behind GILL_DECODE_CHUNK_MIN) and the int8 KV cache are not ported.
+gill_tpu gates its prefix-decode kernel behind GILL_PREFIX_DECODE_MIN
+(default 0, off): on a TPU v5e the Pallas call serialised its cache DMA
+against XLA's overlapped weight stream and lost end to end. That reason is
+the TPU's scheduler, not the function, so the threshold is not ported: on
+a GPU every kernel is its own launch anyway. The chunked valid-prefix
+decode behind GILL_DECODE_CHUNK_MIN (default off) is not ported.
 
 `flash_attention` launches the CUDA kernel for CUDA tensors and raises if it
 cannot; a CPU tensor takes `flash_attention_ref`, its plain version.
@@ -55,16 +63,23 @@ def _xla_attention(q, k, v, *, causal: bool, bias=None, scale: float,
 
 
 def _decode_attention(q, k, v, *, scale: float, kv_offset=None,
-                      extra_kv=None):
+                      extra_kv=None, kv_scales=None):
     """Single-token (T == 1) attention as broadcast-multiply + reduce
     (gill_tpu `_decode_attention`). Valid keys are positions <= kv_offset
     (a scalar or a (B,) tensor of per-row positions; None = all of S).
     extra_kv: optional (k1, v1), each (B, 1, H, D) — the query's own
-    key/value, attended jointly with the cache without concatenating."""
+    key/value, attended jointly with the cache without concatenating.
+    kv_scales: (ks, vs), each (B, S, H), for an int8 cache: the logits are
+    multiplied by ks and the probabilities by vs, and the PV product runs
+    in bf16."""
     s = k.shape[1]
     qf = q[:, 0].float()                                      # (B, H, D)
-    logits = (qf[:, None] * k.float()).sum(-1) * scale        # (B, S, H)
-    vdt = v.dtype
+    logits = (qf[:, None] * k.float()).sum(-1)                # (B, S, H)
+    vdt = torch.bfloat16 if v.dtype == torch.int8 else v.dtype
+    if kv_scales is not None:
+        ks, vs = kv_scales
+        logits = logits * ks.float()
+    logits = logits * scale
     if kv_offset is not None:
         off = torch.as_tensor(kv_offset, device=q.device)
         if off.ndim == 1:
@@ -79,12 +94,17 @@ def _decode_attention(q, k, v, *, scale: float, kv_offset=None,
         p = torch.exp(logits - m)                              # (B, S, H)
         p1 = torch.exp(l1[:, None] - m)                        # (B, 1, H)
         denom = p.sum(dim=1, keepdim=True) + p1
-        acc = ((p / denom)[..., None].to(vdt) * v.to(vdt)).sum(dim=1)
+        pfac = p / denom
+        if kv_scales is not None:
+            pfac = pfac * vs.float()
+        acc = (pfac[..., None].to(vdt) * v.to(vdt)).sum(dim=1)
         acc = acc + (p1 / denom)[:, 0, :, None].to(vdt) * v1[:, 0].to(vdt)
         return acc[:, None]
     m = logits.amax(dim=1, keepdim=True)
     p = torch.exp(logits - m)
     p = p / p.sum(dim=1, keepdim=True)
+    if kv_scales is not None:
+        p = p * vs.float()
     return (p[..., None].to(vdt) * v.to(vdt)).sum(dim=1)[:, None]
 
 
@@ -201,21 +221,47 @@ def flash_eligible(*, on_cuda: bool, t: int, s: int, has_bias: bool,
         and t > 1 and s >= 256)
 
 
+def prefix_decode_eligible(q, k, kv_offset, extra_kv, kv_scales, *,
+                           on_cuda: bool) -> bool:
+    """The dispatcher's gate for the valid-prefix decode kernel: per-row
+    offsets and the own token's k/v given, the kernel's scope
+    (`decode_attn.supported`), on a CUDA device. gill_tpu's measured-on-TPU
+    minimum bucket (PREFIX_DECODE_MIN) is not ported (module docstring)."""
+    from gill_tpu_torch.ops import decode_attn
+
+    return (on_cuda and kv_offset is not None and extra_kv is not None
+            and decode_attn.supported(q, k, kv_offset, kv_scales))
+
+
 def dot_product_attention(q, k, v, *, causal: bool = False, bias=None,
                           kv_offset=None, impl: str = "auto",
-                          fast: bool = False, extra_kv=None):
+                          fast: bool = False, extra_kv=None, kv_scales=None,
+                          kv_lengths=None):
     """Attention core (gill_tpu `dot_product_attention`, same gates).
 
     impl: 'auto' | 'xla' | 'flash'. Single-token causal decode takes the
-    mul + reduce path; `flash_eligible` calls take the flash kernel;
-    everything else the plain einsum path."""
+    valid-prefix kernel where `prefix_decode_eligible`, else the mul +
+    reduce path; `flash_eligible` calls take the flash kernel; everything
+    else the plain einsum path. `kv_lengths`: the (B,) int32 valid cache
+    rows kv_offset + 1 where the caller has made them already (opt.forward
+    makes them once a forward, not once a layer)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     if q.shape[1] == 1 and causal and bias is None and impl != "xla":
+        if prefix_decode_eligible(q, k, kv_offset, extra_kv, kv_scales,
+                                  on_cuda=q.is_cuda):
+            from gill_tpu_torch.ops import decode_attn
+
+            lens = kv_lengths if kv_lengths is not None else \
+                torch.broadcast_to(torch.as_tensor(kv_offset, device=q.device)
+                                   + 1, (q.shape[0],))
+            return decode_attn.prefix_decode_attention(
+                q, k, v, lens, extra_kv[0], extra_kv[1], scale=scale)
         off = k.shape[1] - 1 if kv_offset is None else kv_offset
         return _decode_attention(q, k, v, scale=scale, kv_offset=off,
-                                 extra_kv=extra_kv).to(q.dtype)
-    if extra_kv is not None:
-        raise ValueError("extra_kv is decode-only")
+                                 extra_kv=extra_kv,
+                                 kv_scales=kv_scales).to(q.dtype)
+    if extra_kv is not None or kv_scales is not None:
+        raise ValueError("extra_kv/kv_scales are decode-only")
     if flash_eligible(on_cuda=q.is_cuda, t=q.shape[1], s=k.shape[1],
                       has_bias=bias is not None,
                       has_kv_offset=kv_offset is not None, impl=impl):

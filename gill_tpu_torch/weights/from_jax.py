@@ -6,6 +6,9 @@ and layouts, with one exception: a 4-D convolution kernel "w" is HWIO in
 gill_tpu and becomes an OIHW view in channels_last memory here (the layout
 `nn.core.conv2d` hands cuDNN). bf16 leaves stay bf16 unless `dtype` says
 otherwise. The CPU parity tests and the end-to-end comparison use these.
+Quantized LM trees (`quantize_params_w8`) carry over too: int8 "w8"
+(L, K, N), fp32 "ws" (L, N), "b", and the empty-tuple "kern"/"xla"
+markers, which stay empty tuples.
 """
 
 from __future__ import annotations
@@ -37,9 +40,13 @@ def tree_from_jax(tree, *, device="cpu", dtype: Optional[torch.dtype] = None):
             if k == "w" and not isinstance(v, (dict, list, tuple)) \
                     and np.ndim(v) == 4:
                 out[k] = conv_weight_from_hwio(_leaf(v, device, dtype))
+            elif k == "ws":                    # W8 scales stay fp32
+                out[k] = tree_from_jax(v, device=device)
             else:
                 out[k] = tree_from_jax(v, device=device, dtype=dtype)
         return out
+    if isinstance(tree, tuple) and not tree:       # a static marker
+        return ()
     if isinstance(tree, (list, tuple)):
         return [tree_from_jax(v, device=device, dtype=dtype) for v in tree]
     return _leaf(tree, device, dtype)

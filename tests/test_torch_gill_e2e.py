@@ -3,6 +3,8 @@
 tests/test_load_gill.py fixture, GILL_TPU_TINY_SD=1), with gill_tpu's
 parameters carried into the port by weights/from_jax.py.
 
+The batch API (`generate_for_images_and_texts_batch`, bf16 and W8 LM
+weights) runs through both packages' serving engines on the same prompts.
 Greedy tokens and captions must be equal; the prompt embeddings, the
 [IMG]-run hidden states, the decision probabilities and the GILLMapper
 embedding agree to 1e-4 relative (fp32 through the LM and the adapters,
@@ -181,3 +183,50 @@ def test_port_full_img_route_with_sd(models):
     (img, score), = out[1]["gen"]
     assert isinstance(img, Image.Image) and img.size == (16, 16)
     assert np.isfinite(score) and out[1]["decision"][0] in ("gen", "ret")
+
+
+def _batch_prompts():
+    return [[_image(), "Q: hi\nA:"], ["A picture of"],
+            [_image(), _image(), "Q: which?\nA:"]]
+
+
+@pytest.mark.parametrize("precision", ["bf16", "w8"])
+def test_batch_api_matches_gill_tpu(models, precision):
+    """generate_for_images_and_texts_batch end to end on both packages:
+    three prompts on the text route, then two forced through [IMG]
+    (retrieval, the decision MLP and GILLMapper; SD off on both sides so
+    the generation embeddings themselves are compared). "w8": gill_tpu's
+    W8 LM tree carried into the port (same int8 weights), the engines on
+    its dequant form."""
+    from gill_tpu.api import GILL as JGILL
+    from gill_tpu_torch.api import GILL as TGILL
+
+    jm, tm = models
+    if precision == "w8":
+        jm = JGILL(jm.core, jm.params, jm.tokenizer,
+                   retrieval_index=jm.index,
+                   decision_params=jm.decision_params,
+                   lm_weight_precision="w8")
+        tm = TGILL(tm.core, gill_params_from_jax(jax.device_get(jm.params)),
+                   tm.tokenizer, device="cpu", retrieval_index=tm.index,
+                   decision_params=tm.decision_params)
+        assert tm.params["lm"]["layers"]["fc1"]["w8"].dtype == torch.int8
+    kw = dict(num_words=8, min_word_tokens=8, slots=2, chunk=3)
+    want = jm.generate_for_images_and_texts_batch(_batch_prompts(), **kw)
+    got = tm.generate_for_images_and_texts_batch(_batch_prompts(), **kw)
+    assert got == want and all(isinstance(o[0], str) for o in got)
+
+    jsd, tsd = jm.sd_pipe, tm.sd_pipe
+    jm.sd_pipe = tm.sd_pipe = None
+    try:
+        kw = dict(num_words=3, gen_scale_factor=1e6, slots=2, chunk=2)
+        want = jm.generate_for_images_and_texts_batch([["x"], ["y z"]], **kw)
+        got = tm.generate_for_images_and_texts_batch([["x"], ["y z"]], **kw)
+    finally:
+        jm.sd_pipe, tm.sd_pipe = jsd, tsd
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g[0] == w[0] and g[0].endswith("[IMG0][IMG1][IMG2][IMG3]")
+        assert g[1]["ret"] == w[1]["ret"] == []
+        assert g[1]["decision"][0] == w[1]["decision"][0]
+        _close(g[1]["gen"][0], w[1]["gen"][0])

@@ -24,6 +24,9 @@ bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "gill_tpu", "triton"))
 print(len(names), bad)
 assert len(names) >= 20, names
+for needed in ("gill_tpu_torch.serve.engine", "gill_tpu_torch.serve.gill_engine",
+               "gill_tpu_torch.ops.w8_matmul", "gill_tpu_torch.ops.decode_attn"):
+    assert needed in names, needed
 assert not bad, bad
 """
 
