@@ -38,7 +38,22 @@
        (the plain int8 decode path).
    Every path is driven with the launch counts set to 0 just before and
    read just after; each kernel of a path must have launched in it.
-6. Checks: finite outputs of the expected shapes; request (a) gives the
+6. SD modes (slice 3), phase D, on the same SD v1.5 weights:
+   (D1) `unet.FUSE_LN = True` (GILL_SD_FUSE_LN): one full-width UNet call
+        against the unfused call, then a 50-step 512 x 512 generation; the
+        LN-matmul (K7), stacked LN-matmul (K8) and LN-folded GEGLU (K9)
+        kernels must launch;
+   (D2) `unet.apply(..., q8=True)`: one full-width call against the same
+        call on the plain versions; the int8-QK attention kernel (K10) must
+        launch;
+   (D3) `StableDiffusionPipeline(quantize=True)` (sd_precision="int8"):
+        quantization and int8 UNet times, the int32 sums of `int_mm` and
+        `conv2d_int32` at UNet shapes against exact CPU products, then the
+        SD batch queue of a `GILL` sharing it: three threads submit one
+        50-step job each, which must coalesce into one batch padded to 4,
+        and request (b) through the queue's route;
+   (D4) a 25-step DPM-Solver++ generation.
+7. Checks: finite outputs of the expected shapes; request (a) gives the
    same tokens with every kernel swapped for its plain version; CLIP, the
    OPT prefill, one full-width UNet step, the VAE decode and one W8 decode
    step of phase A agree with their plain-version runs within stated
@@ -84,10 +99,17 @@ GEGLU_REPLACES = "gill_tpu/ops/geglu.py:110 geglu_ff"
 W8_REPLACES = ("gill_tpu/ops/w8_matmul.py:125 w8_matmul + "
                "gill_tpu/ops/w8_matmul.py:52 w8_matmul_stacked")
 DECODE_REPLACES = "gill_tpu/ops/decode_attn.py:140 prefix_decode_attention"
+LN_SRC = "gill_tpu_torch/csrc/ln_matmul.cu"
+I8_SRC = "gill_tpu_torch/csrc/flash_attn_i8.cu"
+LN_REPLACES = "gill_tpu/ops/ln_matmul.py:127 ln_matmul (_kernel)"
+LN3_REPLACES = "gill_tpu/ops/ln_matmul.py:80 ln_matmul_stacked (_kernel_stacked)"
+GEGLU_LN_REPLACES = "gill_tpu/ops/geglu.py:168 geglu_ff(ln_gamma=...) (_kernel_ln)"
+I8_REPLACES = ("gill_tpu/ops/attention.py:446 flash_attention_bthd(q8=True) "
+               "(_flash_kernel_i8, :349)")
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 
 
 def log(*a):
@@ -119,10 +141,11 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def bound(nbytes: float, flops: float, kind: str):
-    """(ms, "bytes" | "operations"): the least time the card could take."""
+def bound(nbytes: float, flops: float, kind: str, more=()):
+    """(ms, "bytes" | "operations"): the least time the card could take;
+    `more` adds (operations, kind) pairs run at other peak rates."""
     t_bytes = nbytes / HBM_BYTES_S
-    t_ops = flops / PEAK_FLOPS[kind]
+    t_ops = sum(f / PEAK_FLOPS[k] for f, k in ((flops, kind), *more))
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -183,6 +206,14 @@ W8_SHAPES += [(f"seq_fp32_{name}", 1, k, n, "float32")
                                  ("fc2", 16384, 4096))]
 # (B, S): the decode kernel's calls (slots x read window), H 32, D 128
 DECODE_SHAPES = [(16, 256), (16, 512), (8, 256), (8, 512)]
+# (site, M, d): the LN-matmuls of the UNet's head-dim-40/80 blocks under
+# FUSE_LN (n = d): K7 the cross-attention q, K8 the self-attention q/k/v
+LN_SHAPES = [("unet64", 8192, 320), ("unet32", 2048, 640)]
+# (site, B, T, S, H, D): the int8-QK attention calls of unet.apply(q8=True)
+Q8_SHAPES = [("unet64_self", 2, 4096, 4096, 8, 40),
+             ("unet64_cross", 2, 4096, 77, 8, 40),
+             ("unet32_self", 2, 1024, 1024, 8, 80),
+             ("unet32_cross", 2, 1024, 77, 8, 80)]
 
 
 def out_tol(torch, ref) -> float:
@@ -357,7 +388,109 @@ def kernel_phase(torch, dev):
                     f"{float(err_b[worst]):.3e}; rows {lens.tolist()}; "
                     f"parked row exact: {parked_exact}")
         del pool, k, v
+    kernel_phase_sd_modes(torch, dev, g, record)
     return rows, failures
+
+
+def kernel_phase_sd_modes(torch, dev, g, record):
+    """Slice 3's kernels (K7-K10) at the shapes phase D gives them; each
+    row goes to `record`."""
+    import torch.nn.functional as F
+
+    from gill_tpu_torch.ops.attention import (flash_attention_q8,
+                                              flash_attention_q8_ref)
+    from gill_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ref
+    from gill_tpu_torch.ops.ln_matmul import (ln_matmul, ln_matmul_ref,
+                                              ln_matmul_stacked,
+                                              ln_matmul_stacked_ref)
+
+    bf = torch.bfloat16
+
+    def ln_params(d):
+        return ((1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(bf),
+                (0.1 * torch.randn(d, device=dev, generator=g)).to(bf))
+
+    for site, m, d in LN_SHAPES:
+        x = (2 * torch.randn(m, d, device=dev, generator=g) + 0.3).to(bf)
+        ga, be = ln_params(d)
+        w = (torch.randn(3, d, d, device=dev, generator=g)
+             / math.sqrt(d)).to(bf)
+        for name, kk, fn, ref, src, rep in (
+                ("ln_matmul", 1, lambda: ln_matmul(x, ga, be, w[0]),
+                 lambda: ln_matmul_ref(x, ga, be, w[0]), LN_SRC,
+                 LN_REPLACES),
+                ("ln_matmul_stacked", 3,
+                 lambda: ln_matmul_stacked(x, ga, be, w),
+                 lambda: ln_matmul_stacked_ref(x, ga, be, w), LN_SRC,
+                 LN3_REPLACES)):
+            out, want = fn(), ref()
+            torch.cuda.synchronize()
+            err = float((out.float() - want.float()).abs().max())
+            bms, by = bound((m * d + 2 * d + kk * d * d + kk * m * d) * 2,
+                            2.0 * kk * m * d * d, "bf16")
+            row = {"name": name, "site": site, "route": "cuda",
+                   "source": src, "replaces": rep,
+                   "shape": f"x({m},{d}) w({kk},{d},{d}) bfloat16",
+                   "ms": cuda_ms(torch, fn, 20),
+                   "plain_ms": cuda_ms(torch, ref, 20),
+                   "bound_ms": bms, "bound_by": by, "library_ms": None}
+            record(row, err, geglu_tol(want.float()))
+    for site, m, d in GEGLU_SHAPES:
+        x = (2 * torch.randn(m, d, device=dev, generator=g) - 0.2).to(bf)
+        ga, be = ln_params(d)
+        w1 = (torch.randn(d, 8 * d, device=dev, generator=g)
+              / math.sqrt(d)).to(bf)
+        b1 = (0.1 * torch.randn(8 * d, device=dev, generator=g)).to(bf)
+        w2 = (torch.randn(4 * d, d, device=dev, generator=g)
+              / math.sqrt(4 * d)).to(bf)
+        b2 = (0.1 * torch.randn(d, device=dev, generator=g)).to(bf)
+        ln = dict(ln_gamma=ga, ln_beta=be)
+        out = geglu_ff(x, w1, b1, w2, b2, **ln)
+        want = geglu_ff_ref(x, w1, b1, w2, b2, **ln)
+        torch.cuda.synchronize()
+        err = float((out.float() - want.float()).abs().max())
+        bms, by = bound((2 * m * d + 12 * d * d + 11 * d) * 2,
+                        24.0 * m * d * d, "bf16")
+        row = {"name": "geglu_ff_ln", "site": site, "route": "cuda",
+               "source": GEGLU_SRC, "replaces": GEGLU_LN_REPLACES,
+               "shape": f"x({m},{d}) bfloat16, LayerNorm folded",
+               "ms": cuda_ms(torch, lambda: geglu_ff(x, w1, b1, w2, b2,
+                                                     **ln), 20),
+               "plain_ms": cuda_ms(torch, lambda: geglu_ff_ref(
+                   x, w1, b1, w2, b2, **ln), 20),
+               "bound_ms": bms, "bound_by": by, "library_ms": None}
+        record(row, err, geglu_tol(want.float()))
+    for site, b, t, s, h, d in Q8_SHAPES:
+        q, k, v = (torch.randn(b, n, h, d, device=dev, generator=g).to(bf)
+                   for n in (t, s, s))
+        sc = 1.0 / math.sqrt(d)
+        out = flash_attention_q8(q, k, v, scale=sc)
+        want = flash_attention_q8_ref(q, k, v, scale=sc)
+        torch.cuda.synchronize()
+        err = float((out.float() - want.float()).abs().max())
+        # QK on the int8 tensor cores, PV on the bf16 ones
+        bms, by = bound((2 * b * t * h * d + 2 * b * s * h * d) * 2,
+                        2.0 * b * h * t * s * d, "int8",
+                        more=[(2.0 * b * h * t * s * d, "bf16")])
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        reps = 8 if t * s >= 4096 * 4096 else 20
+        row = {"name": "flash_attention_q8", "site": site, "route": "cuda",
+               "source": I8_SRC, "replaces": I8_REPLACES,
+               "shape": f"q({b},{t},{h},{d}) kv({b},{s},{h},{d}) bfloat16",
+               "ms": cuda_ms(torch, lambda: flash_attention_q8(
+                   q, k, v, scale=sc), reps),
+               "plain_ms": cuda_ms(torch, lambda: flash_attention_q8_ref(
+                   q, k, v, scale=sc), reps),
+               "bound_ms": bms, "bound_by": by,
+               # the exact bf16 attention that K10 approximates
+               "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, scale=sc), reps),
+               "library_computes": "exact bf16 attention (SDPA), the "
+                                   "function K10 approximates"}
+        # both quantize identically: equal int8 values and int32 scores,
+        # only the softmax's summation order differs -> two bf16 ulps
+        record(row, err, 2.0 * 2.0 ** -7 * float(want.float().abs().max()))
+        del q, k, v, qt, kt, vt, out, want
 
 
 # ---------------------------------------------------------------------------
@@ -371,47 +504,62 @@ def plain_kernels():
     from gill_tpu_torch.models.sd import unet as unet_mod
     from gill_tpu_torch.ops import attention as attn_mod
     from gill_tpu_torch.ops import decode_attn
+    from gill_tpu_torch.ops import ln_matmul as ln_mod
     from gill_tpu_torch.ops import w8_matmul as w8_mod
     from gill_tpu_torch.ops.geglu import geglu_ff_ref
-
-    saved = (attn_mod.flash_attention, unet_mod.geglu_ff, w8_mod.w8_matmul,
-             decode_attn.prefix_decode_attention)
 
     def flash_plain(q, k, v, *, causal=False, scale=None, kv_len=None,
                     fast=False):
         return attn_mod.flash_attention_ref(q, k, v, causal=causal,
                                             scale=scale, kv_len=kv_len)
 
-    (attn_mod.flash_attention, unet_mod.geglu_ff, w8_mod.w8_matmul,
-     decode_attn.prefix_decode_attention) = (
-        flash_plain, geglu_ff_ref, w8_mod.w8_matmul_ref,
-        decode_attn.prefix_decode_attention_ref)
+    swaps = [(attn_mod, "flash_attention", flash_plain),
+             (unet_mod, "geglu_ff", geglu_ff_ref),
+             (w8_mod, "w8_matmul", w8_mod.w8_matmul_ref),
+             (decode_attn, "prefix_decode_attention",
+              decode_attn.prefix_decode_attention_ref),
+             (ln_mod, "ln_matmul", ln_mod.ln_matmul_ref),
+             (ln_mod, "ln_matmul_stacked", ln_mod.ln_matmul_stacked_ref),
+             (attn_mod, "flash_attention_q8", attn_mod.flash_attention_q8_ref)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        (attn_mod.flash_attention, unet_mod.geglu_ff, w8_mod.w8_matmul,
-         decode_attn.prefix_decode_attention) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 KERNELS = ("flash_attention", "geglu_ff", "w8_matmul",
-           "prefix_decode_attention")
+           "prefix_decode_attention", "ln_matmul", "ln_matmul_stacked",
+           "geglu_ff_ln", "flash_attention_q8")
 
 
-def _kernel_fns():
-    from gill_tpu_torch.ops import attention, decode_attn, geglu, w8_matmul
+def _counters():
+    """{kernel name: (wrapper, attribute holding its launch count)}; the
+    LN-folded GEGLU counts on the GEGLU wrapper's own `ln_launches`."""
+    from gill_tpu_torch.ops import (attention, decode_attn, geglu, ln_matmul,
+                                    w8_matmul)
 
-    return {"flash_attention": attention.flash_attention,
-            "geglu_ff": geglu.geglu_ff, "w8_matmul": w8_matmul.w8_matmul,
-            "prefix_decode_attention": decode_attn.prefix_decode_attention}
+    return {"flash_attention": (attention.flash_attention, "launches"),
+            "geglu_ff": (geglu.geglu_ff, "launches"),
+            "w8_matmul": (w8_matmul.w8_matmul, "launches"),
+            "prefix_decode_attention": (decode_attn.prefix_decode_attention,
+                                        "launches"),
+            "ln_matmul": (ln_matmul.ln_matmul, "launches"),
+            "ln_matmul_stacked": (ln_matmul.ln_matmul_stacked, "launches"),
+            "geglu_ff_ln": (geglu.geglu_ff, "ln_launches"),
+            "flash_attention_q8": (attention.flash_attention_q8, "launches")}
 
 
 def zero_launches():
-    for fn in _kernel_fns().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _kernel_fns().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
 class PhaseTimer:
@@ -948,6 +1096,206 @@ def serving(torch, dev, model, prompt_b):
     return report, failures
 
 
+# ---------------------------------------------------------------------------
+# SD modes (slice 3)
+# ---------------------------------------------------------------------------
+
+def _unet_inputs(torch, dev, cfg, dtype):
+    """The UNet call of the checks: the CFG batch 2 at the pipeline's
+    latent size (64 x 64 for SD v1.5 at 512 x 512)."""
+    g = torch.Generator(dev).manual_seed(11)
+    h = cfg.default_size // cfg.vae_scale
+    lat = torch.randn(2, h, h, 4, device=dev, generator=g).to(dtype)
+    ctx = _embeddings(torch, cfg, dev, g, 2).to(dtype)
+    return lat, torch.tensor(981.0, device=dev), ctx
+
+
+def _embeddings(torch, cfg, dev, g, n=1):
+    return 0.5 * torch.randn(n, cfg.text.max_positions,
+                             cfg.unet.cross_attention_dim, device=dev,
+                             generator=g)
+
+
+def _generation(torch, pipe, steps: int, seed: int):
+    """One generation at the pipeline's size from seeded embeddings:
+    (images, s)."""
+    dev = pipe.params["unet"]["conv_in"]["b"].device
+    g = torch.Generator(dev).manual_seed(seed)
+    emb = _embeddings(torch, pipe.cfg, dev, g)
+    return timed(torch, lambda: pipe(prompt_embeds=emb,
+                                     num_inference_steps=steps, generator=g))
+
+
+def _finite_image(torch, img, size: int) -> bool:
+    return (tuple(img.shape) == (1, size, size, 3)
+            and bool(torch.isfinite(img).all()))
+
+
+def phase_d(torch, dev, model, prompt_b):
+    """GILL_SD_FUSE_LN (D1), q8 (D2), sd_precision="int8" with the SD
+    batch queue (D3) and DPM-Solver++ (D4) at full width on the main path's
+    SD v1.5 weights. Launch counts are set to 0 just before each driven
+    step and read just after."""
+    import threading
+
+    import torch.nn.functional as F
+
+    from gill_tpu_torch.api import GILL
+    from gill_tpu_torch.models.sd import unet as unet_mod
+    from gill_tpu_torch.models.sd.pipeline import StableDiffusionPipeline
+    from gill_tpu_torch.ops import quant
+
+    rep, failures = {}, []
+    pipe = model.sd_pipe
+    params, ucfg = pipe.params["unet"], pipe.cfg.unet
+    size = pipe.cfg.default_size
+    lat, t, ctx = _unet_inputs(torch, dev, pipe.cfg,
+                               params["conv_in"]["b"].dtype)
+
+    def call(p=params, **kw):
+        return unet_mod.apply(p, ucfg, lat, t, ctx, **kw)
+
+    def need(launches, names, step):
+        for name in names:
+            if launches[name] <= 0:
+                failures.append(f"{name} was not launched in {step}")
+
+    # D1: LayerNorm folded into the q/k/v projections and the GEGLU
+    base, rep["unet_call_bf16_s"] = timed(torch, call)
+    unet_mod.FUSE_LN = True
+    try:
+        zero_launches()
+        fused, rep["unet_call_fused_ln_s"] = timed(torch, call)
+        rep["unet_call_fused_ln_launches"] = read_launches()
+        rep["fused_ln_rel_err_vs_unfused"] = rel_err(torch, fused, base)
+        zero_launches()
+        img, rep["gen512_fused_ln_50step_s"] = _generation(torch, pipe, 50, 21)
+        rep["gen512_fused_ln_launches"] = launches_d1 = read_launches()
+    finally:
+        unet_mod.FUSE_LN = False
+    need(rep["unet_call_fused_ln_launches"],
+         ("ln_matmul", "ln_matmul_stacked", "geglu_ff_ln"), "D1's UNet call")
+    need(launches_d1, ("ln_matmul", "ln_matmul_stacked", "geglu_ff_ln"),
+         "D1's generation")
+    if not rep["fused_ln_rel_err_vs_unfused"] <= 3e-2:
+        failures.append(f"D1 fused-LN UNet call differs from the unfused "
+                        f"call: {rep['fused_ln_rel_err_vs_unfused']}")
+    if not _finite_image(torch, img, size):
+        failures.append("D1 gave no finite image")
+    _, rep["gen512_bf16_50step_s"] = _generation(torch, pipe, 50, 21)
+
+    # D2: int8-QK attention
+    zero_launches()
+    q8, rep["unet_call_q8_s"] = timed(torch, lambda: call(q8=True))
+    rep["unet_call_q8_launches"] = launches_d2 = read_launches()
+    need(launches_d2, ("flash_attention_q8",), "D2's UNet call")
+    with plain_kernels():
+        q8_plain = call(q8=True)
+    torch.cuda.synchronize()
+    rep["q8_rel_err_vs_plain_versions"] = rel_err(torch, q8, q8_plain)
+    rep["q8_rel_distance_to_bf16_call"] = rel_err(torch, q8, base)
+    if not rep["q8_rel_err_vs_plain_versions"] <= 3e-2:
+        failures.append(f"D2 q8 UNet call differs from its plain versions: "
+                        f"{rep['q8_rel_err_vs_plain_versions']}")
+    del q8, q8_plain, fused
+
+    # D3: the W8A8 UNet and the SD batch queue
+    pipe8, rep["quantize_s"] = timed(torch, lambda: StableDiffusionPipeline(
+        pipe.cfg, pipe.params, quantize=True))
+    p8 = pipe8.params["unet"]
+    out8, rep["unet_call_int8_s"] = timed(torch, lambda: call(p8))
+    _, rep["unet_call_int8_again_s"] = timed(torch, lambda: call(p8))
+    rep["int8_rel_distance_to_bf16_call"] = rel_err(torch, out8, base)
+    if not bool(torch.isfinite(out8).all()):
+        failures.append("D3 int8 UNet call is not finite")
+    # int32 sums at UNet shapes against exact CPU products: the first
+    # block's GEGLU projection (8192 x 320 @ 320 x 2560 at 512 x 512) and
+    # conv_in (K = 36)
+    g = torch.Generator(dev).manual_seed(31)
+    wq = p8["down"][0]["attns"][0]["block"]["geglu"]["wq"]
+    xq = torch.randint(-127, 128, (2 * lat.shape[1] * lat.shape[2],
+                                   wq.shape[0]), device=dev, generator=g,
+                       dtype=torch.int8)
+    sums_ok = torch.equal(quant.int_mm(xq, wq).cpu().long(),
+                          xq.cpu().long() @ wq.cpu().long())
+    lq = torch.randint(-127, 128, tuple(lat.shape), device=dev, generator=g,
+                       dtype=torch.int8)
+    cw = p8["conv_in"]["wq"]
+    conv = quant.conv2d_int32(lq, cw, padding=1).cpu()
+    exact = F.conv2d(lq.cpu().double().permute(0, 3, 1, 2),
+                     cw.cpu().double(), padding=1).permute(0, 2, 3, 1)
+    rep["int32_sums_equal_exact"] = sums_ok and torch.equal(
+        conv.double(), exact)
+    if not rep["int32_sums_equal_exact"]:
+        failures.append("D3 int8 products differ from exact CPU products")
+    del out8, xq, lq
+
+    gq = GILL(model.core, model.params, model.tokenizer, device=dev,
+              sd_pipe=pipe8, retrieval_index=model.index,
+              decision_params=model.decision_params)
+    queue = gq.enable_sd_batching()
+    ready = threading.Barrier(3)
+    futs = [None] * 3
+
+    def client(i):
+        gen = torch.Generator(dev).manual_seed(40 + i)
+        emb = _embeddings(torch, pipe.cfg, dev, gen)
+        ready.wait()
+        futs[i] = queue.submit(emb, guidance_scale=7.5,
+                               num_inference_steps=50, generator=gen)
+
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(3)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        imgs = [f.result(timeout=600) for f in futs]
+        torch.cuda.synchronize()
+        rep["queue_batch_s"] = time.perf_counter() - t0
+        rep["queue_stats_after_batch"] = dict(queue.stats)
+        st = queue.stats
+        if (st["batches"], st["jobs"], st["latents"],
+                st["padded_latents"]) != (1, 3, 3, 4):
+            failures.append(f"D3 queue did not coalesce 3 jobs into one "
+                            f"batch of 4: {st}")
+        if not all(_finite_image(torch, x, size) for x in imgs):
+            failures.append("D3 queue gave no three finite images")
+        images = []
+        orig_decode = pipe8.decode_latents
+
+        def capture(latents):
+            out = orig_decode(latents)
+            images.append(out)
+            return out
+
+        pipe8.decode_latents = capture
+        out_b, rep["request_b_int8_queue_s"] = timed(
+            torch, lambda: gq.generate_for_images_and_texts(
+                [prompt_b], num_words=16, gen_scale_factor=1e6))
+        pipe8.decode_latents = orig_decode
+        rep["queue_stats"] = dict(queue.stats)
+        if not (len(out_b) == 2 and isinstance(out_b[1], dict)
+                and len(out_b[1]["gen"]) == 1 and queue.stats["jobs"] == 4
+                and len(images) == 1 and _finite_image(torch, images[0], size)):
+            failures.append(f"D3 request (b) did not go through the queue "
+                            f"to a finite image: {out_b!r}")
+    finally:
+        queue.close()
+    del gq, pipe8, p8, imgs
+    torch.cuda.empty_cache()
+
+    # D4: DPM-Solver++ at 25 steps
+    dpm = StableDiffusionPipeline(pipe.cfg, pipe.params, sampler="dpm++")
+    img, rep["gen512_dpmpp_25step_s"] = _generation(torch, dpm, 25, 22)
+    if not _finite_image(torch, img, size):
+        failures.append("D4 gave no finite image")
+    return rep, failures
+
+
 # one run of a tree's own main path, in a fresh process (argv[1]: its
 # root, argv[2]: this script, whose device_profile reads both trees), then
 # ten timed full-width UNet calls and one profiled one
@@ -1063,17 +1411,29 @@ def main() -> int:
         model, launches, report, path_failures = main_path(torch, dev)
         failures += path_failures
         log("main path:", json.dumps(report))
-        serve_report, serve_failures = serving(
-            torch, dev, model, dialogue_prompt(256, model.tokenizer))
+        prompt_b = dialogue_prompt(256, model.tokenizer)
+        serve_report, serve_failures = serving(torch, dev, model, prompt_b)
         failures += serve_failures
+        t0 = time.perf_counter()
+        d_report, d_failures = phase_d(torch, dev, model, prompt_b)
+        d_report["wall_s"] = time.perf_counter() - t0
+        failures += d_failures
+        log("SD modes phase D:", json.dumps(d_report))
     # launches on each kernel's own paths: slice 1's main path for flash
-    # and GEGLU, serving phases A and B for the W8 and decode kernels
+    # and GEGLU, serving phases A and B for the W8 and decode kernels, the
+    # fused-LN generation (D1) for K7-K9 and the q8 UNet call (D2) for K10
+    d_launches = {**d_report["gen512_fused_ln_launches"],
+                  "flash_attention_q8":
+                      d_report["unet_call_q8_launches"]["flash_attention_q8"]}
     for row in rows:
         name = row["name"]
-        row["launches"] = (launches[name] if name in ("flash_attention",
-                                                      "geglu_ff")
-                           else serve_report["A"]["launches"][name]
-                           + serve_report["B"]["launches"][name])
+        if name in ("flash_attention", "geglu_ff"):
+            row["launches"] = launches[name]
+        elif name in ("w8_matmul", "prefix_decode_attention"):
+            row["launches"] = (serve_report["A"]["launches"][name]
+                               + serve_report["B"]["launches"][name])
+        else:
+            row["launches"] = d_launches[name]
     log(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s")
     if failures:
         for f in failures:

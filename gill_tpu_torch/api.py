@@ -14,6 +14,9 @@ the continuous-batching GILL engine (serve/gill_engine.py), with the same
 per-prompt outputs. `lm_weight_precision="w8"` serves int8 LM weights
 (models/opt.py quantize_params_w8, the W8 kernel on CUDA);
 `kv_cache_precision="int8"` gives the sequential decode an int8 KV cache.
+`load_gill(sd_precision="int8")` serves the W8A8 SD UNet, and
+`enable_sd_batching` routes SD generations through the cross-request batch
+queue (serve/sd_queue.py).
 
 Not ported yet: the async / online serving methods,
 get_log_likelihood_scores, the safety checker, the HF/diffusers weight
@@ -77,6 +80,7 @@ class GILL:
         self.tokenizer = tokenizer
         self.device = torch.device(device)
         self.sd_pipe = sd_pipe
+        self.sd_batcher = None
         self.index = retrieval_index
         self.decision_params = decision_params
         self.num_gen_images = num_gen_images
@@ -319,13 +323,25 @@ class GILL:
                     (self.num_gen_images,) + tuple(gen_emb.shape[1:]))
                 gen_max_bs = 8    # reference per-request cap, models.py:724
                 images = []
-                for i in range(0, self.num_gen_images, gen_max_bs):
-                    arr = self.sd_pipe(
-                        prompt_embeds=gen_emb_rep[i:i + gen_max_bs],
+                if self.sd_batcher is not None:
+                    # cross-request batching: the shared queue coalesces
+                    # concurrent callers' latents into one CFG denoise
+                    futs = [self.sd_batcher.submit(
+                        gen_emb_rep[i:i + gen_max_bs],
                         guidance_scale=guidance_scale,
                         num_inference_steps=num_inference_steps,
                         generator=generator)
-                    images.extend(self._to_pil(arr))
+                        for i in range(0, self.num_gen_images, gen_max_bs)]
+                    for f in futs:
+                        images.extend(self._to_pil(f.result()))
+                else:
+                    for i in range(0, self.num_gen_images, gen_max_bs):
+                        arr = self.sd_pipe(
+                            prompt_embeds=gen_emb_rep[i:i + gen_max_bs],
+                            guidance_scale=guidance_scale,
+                            num_inference_steps=num_inference_steps,
+                            generator=generator)
+                        images.extend(self._to_pil(arr))
                 if self.index is not None and ret_emb is not None:
                     # re-rank generated images by CLIP-space retrieval score
                     # (models.py:739-751)
@@ -359,6 +375,23 @@ class GILL:
             return_outputs.append(image_outputs)
         return return_outputs
 
+    def enable_sd_batching(self, max_batch: int = 8, warmup: bool = False,
+                           **warmup_kw):
+        """Routes this model's SD generations through a shared cross-request
+        batch queue (serve/sd_queue.py): concurrent callers' denoises
+        coalesce into one <= max_batch-latent CFG batch instead of
+        serializing on the device. Each request's initial latents still
+        come from its own generator. Returns the queue."""
+        if self.sd_batcher is None:
+            from gill_tpu_torch.serve.sd_queue import SDBatchQueue
+
+            if self.sd_pipe is None:
+                raise ValueError("no SD pipeline attached")
+            self.sd_batcher = SDBatchQueue(self.sd_pipe, max_batch=max_batch)
+            if warmup:
+                self.sd_batcher.warmup(**warmup_kw)
+        return self.sd_batcher
+
     @staticmethod
     def _to_pil(arr) -> List[Image.Image]:
         arr = arr.cpu().numpy()
@@ -382,7 +415,8 @@ def load_gill(model_dir: str, *, device="cuda", load_ret_embs: bool = True,
               load_sd: bool = True, num_gen_images: int = 1,
               dtype=torch.bfloat16, seed: int = 0,
               lm_weight_precision: str = "bf16",
-              kv_cache_precision: str = "bf16") -> GILL:
+              kv_cache_precision: str = "bf16",
+              sd_precision: str = "bf16") -> GILL:
     """Builds an inference GILL from a checkpoint directory: model_args.json,
     the tokenizer, the npz adapter checkpoint (`ckpt/state.npz`), the
     pickled cc3m*.npy retrieval blobs and the decision model (reference
@@ -394,7 +428,8 @@ def load_gill(model_dir: str, *, device="cuda", load_ret_embs: bool = True,
     adapters stay fp32. GILL_TPU_TINY_SD=1 selects the tiny SD config (the
     CPU smoke-test escape hatch of gill_tpu). The model runs on the card
     unless `device` names another (the CPU tests pass "cpu");
-    lm_weight_precision / kv_cache_precision as in GILL."""
+    lm_weight_precision / kv_cache_precision as in GILL. sd_precision:
+    "bf16" or "int8", the opt-in W8A8 SD UNet (unet.quantize_params)."""
     from gill_tpu_torch.models import clip as clip_mod
     from gill_tpu_torch.models.sd import unet as unet_mod
     from gill_tpu_torch.models.sd import vae as vae_mod
@@ -404,6 +439,8 @@ def load_gill(model_dir: str, *, device="cuda", load_ret_embs: bool = True,
                                           setup_gill_tokenizer)
     from gill_tpu_torch.utils import ckpt as ckpt_utils
 
+    if sd_precision not in ("bf16", "int8"):
+        raise ValueError(f"sd_precision {sd_precision!r}")
     device = torch.device(device)
     cfg = GILLConfig.from_json(os.path.join(model_dir, "model_args.json"))
     try:
@@ -470,7 +507,8 @@ def load_gill(model_dir: str, *, device="cuda", load_ret_embs: bool = True,
             "vae_decoder": vae_mod.init_decoder(init, sd_cfg.vae),
             "text_encoder": clip_mod.init_text(init, sd_cfg.text),
         }
-        sd_pipe = StableDiffusionPipeline(sd_cfg, sd_params)
+        sd_pipe = StableDiffusionPipeline(
+            sd_cfg, sd_params, quantize=(sd_precision == "int8"))
 
     return GILL(core, params, tokenizer, device=device, sd_pipe=sd_pipe,
                 retrieval_index=index, decision_params=decision_params,

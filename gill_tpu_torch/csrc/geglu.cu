@@ -30,6 +30,14 @@
 //    writes fp32 partials to a workspace and a second kernel sums them in a
 //    fixed order and adds b2, so the result stays deterministic.
 // TMA, deeper pipelines and wgmma are later work.
+//
+// The same kernel, with LN = true, replaces `_kernel_ln` (geglu_ff with
+// ln_gamma/ln_beta, GILL_SD_FUSE_LN=1): x is the raw residual stream and
+// the block normalizes its resident x tile in place (common.cuh
+// `ln_rows_inplace`, `_ln_rows`' rounding points) before the first
+// product, so the normalized tensor never exists in device memory. The
+// gelu stays the exact erf form; `_kernel_ln`'s tanh form is Mosaic's lack
+// of erf. LN = false is the kernel K3 always was.
 
 #include <mma.h>
 
@@ -76,9 +84,11 @@ typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
-template <int D>
+template <int D, bool LN>
 __global__ void __launch_bounds__(NT)
-    geglu_fwd(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+    geglu_fwd(const bf16* __restrict__ x, const bf16* __restrict__ ln_g,
+              const bf16* __restrict__ ln_b, float ln_eps,
+              const bf16* __restrict__ w1,
               const bf16* __restrict__ b1, const bf16* __restrict__ w2,
               const bf16* __restrict__ b2, bf16* __restrict__ out,
               float* __restrict__ ws, int M) {
@@ -109,6 +119,12 @@ __global__ void __launch_bounds__(NT)
     if (m0 + r < M)
       v = reinterpret_cast<const uint4*>(x + (long long)(m0 + r) * D)[q];
     *reinterpret_cast<uint4*>(xs + r * C::LX + q * 8) = v;
+  }
+  if constexpr (LN) {
+    // the rows are written; the first barrier of the loop below orders
+    // the normalized tile before any product reads it
+    __syncthreads();
+    ln_rows_inplace<D>(xs, C::LX, BM, ln_g, ln_b, ln_eps, warp, NW, lane);
   }
 
   FragC acc[OF];
@@ -245,17 +261,20 @@ template <int D> int row_blocks(int M) {
   return (M + GCfg<D>::BM - 1) / GCfg<D>::BM;
 }
 
-template <int D>
-cudaError_t launch(const void* x, const void* w1, const void* b1,
+template <int D, bool LN>
+cudaError_t launch(const void* x, const void* ln_g, const void* ln_b,
+                   float ln_eps, const void* w1, const void* b1,
                    const void* w2, const void* b2, void* out, void* ws, int M,
                    int splits, cudaStream_t stream) {
   constexpr size_t smem = GSmem<D>::total;
   cudaError_t e = cudaFuncSetAttribute(
-      geglu_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      geglu_fwd<D, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid(row_blocks<D>(M), splits);
-  geglu_fwd<D><<<grid, NT, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+  geglu_fwd<D, LN><<<grid, NT, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(ln_g),
+      static_cast<const bf16*>(ln_b), ln_eps, static_cast<const bf16*>(w1),
       static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
       static_cast<const bf16*>(b2), static_cast<bf16*>(out),
       static_cast<float*>(ws), M);
@@ -282,6 +301,28 @@ int splits_for(int M, int d, int num_sms) {
   return s < 1 ? 1 : (s > nchunks ? nchunks : s);
 }
 
+template <bool LN>
+int dispatch(const void* x, const void* ln_g, const void* ln_b, float ln_eps,
+             const void* w1, const void* b1, const void* w2, const void* b2,
+             void* out, void* ws, int M, int d, int splits, void* stream) {
+  if (M <= 0 || splits < 1 || splits > 4 * d / NC ||
+      (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 320:
+      return (int)launch<320, LN>(x, ln_g, ln_b, ln_eps, w1, b1, w2, b2, out,
+                                  ws, M, splits, st);
+    case 640:
+      return (int)launch<640, LN>(x, ln_g, ln_b, ln_eps, w1, b1, w2, b2, out,
+                                  ws, M, splits, st);
+    case 1280:
+      return (int)launch<1280, LN>(x, ln_g, ln_b, ln_eps, w1, b1, w2, b2, out,
+                                   ws, M, splits, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // How many inner-dimension splits gill_geglu_ff will use for (M, d) on a
@@ -299,14 +340,17 @@ extern "C" int gill_geglu_ff(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* b2, void* out,
                              void* ws, int M, int d, int splits,
                              void* stream) {
-  if (M <= 0 || splits < 1 || splits > 4 * d / NC ||
-      (splits > 1 && ws == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 320: return (int)launch<320>(x, w1, b1, w2, b2, out, ws, M, splits, st);
-    case 640: return (int)launch<640>(x, w1, b1, w2, b2, out, ws, M, splits, st);
-    case 1280: return (int)launch<1280>(x, w1, b1, w2, b2, out, ws, M, splits, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(x, nullptr, nullptr, 0.f, w1, b1, w2, b2, out, ws, M,
+                         d, splits, stream);
+}
+
+// gill_geglu_ff on LN(x): ln_g and ln_b bf16 (d), 16-byte aligned, and
+// ln_eps the LayerNorm's epsilon; x is the raw (un-normalized) input.
+extern "C" int gill_geglu_ff_ln(const void* x, const void* ln_g,
+                                const void* ln_b, float ln_eps, const void* w1,
+                                const void* b1, const void* w2, const void* b2,
+                                void* out, void* ws, int M, int d, int splits,
+                                void* stream) {
+  return dispatch<true>(x, ln_g, ln_b, ln_eps, w1, b1, w2, b2, out, ws, M, d,
+                        splits, stream);
 }

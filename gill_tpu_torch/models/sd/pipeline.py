@@ -9,6 +9,11 @@ of gill_tpu's pipeline without an SD tokenizer). The 50-step PNDM loop is a
 Python loop; the scheduler math runs in fp32 on fp32 latents, while the
 UNet and the VAE run in their parameters' dtype. Latents come from an
 explicit `torch.Generator` or are passed in.
+
+`quantize=True` is the opt-in W8A8 UNet (sd_precision="int8",
+unet.quantize_params, ops/quant.py); `sampler="dpm++"` takes DPM-Solver++
+2M in place of PNDM. The pipeline never sets the UNet's `q8`, as gill_tpu's
+does not.
 """
 
 from __future__ import annotations
@@ -20,17 +25,29 @@ import torch
 from gill_tpu_torch.config import SDPipelineConfig
 from gill_tpu_torch.models.sd import unet as unet_mod
 from gill_tpu_torch.models.sd import vae as vae_mod
-from gill_tpu_torch.models.sd.scheduler import PNDMScheduler
+from gill_tpu_torch.models.sd.scheduler import SAMPLERS, PNDMScheduler
 from gill_tpu_torch.nn.core import tree_leaves
 
 
 class StableDiffusionPipeline:
     def __init__(self, cfg: SDPipelineConfig, params: dict,
-                 scheduler: Optional[PNDMScheduler] = None):
-        """params: {"unet", "vae_decoder", optional "text_encoder"}."""
+                 scheduler: Optional[PNDMScheduler] = None,
+                 quantize: bool = False, sampler: str = "pndm"):
+        """params: {"unet", "vae_decoder", optional "text_encoder"}.
+        quantize: quantize the UNet's convs and linears once, here
+        (unet.quantize_params). sampler: "pndm" (the reference's) or
+        "dpm++"; an explicit `scheduler` overrides it."""
         self.cfg = cfg
+        if quantize and params.get("unet") is not None:
+            params = dict(params)
+            params["unet"] = unet_mod.quantize_params(params["unet"])
+        self.quantized = quantize
         self.params = params
-        self.scheduler = scheduler or PNDMScheduler(cfg.scheduler)
+        if scheduler is None:
+            if sampler not in SAMPLERS:
+                raise ValueError(f"sampler {sampler!r} not in {list(SAMPLERS)}")
+            scheduler = SAMPLERS[sampler](cfg.scheduler)
+        self.scheduler = scheduler
         self.latent_channels = cfg.vae.latent_channels
 
     def __call__(self, *, prompt_embeds, negative_prompt_embeds=None,
@@ -65,13 +82,23 @@ class StableDiffusionPipeline:
 
     def denoise(self, latents, ctx, num_inference_steps: int,
                 guidance_scale: float):
+        """The CFG denoise loop. The UNet runs in the dtype of its
+        `conv_in` weight, or of `conv_in`'s bias where quantization
+        replaced the weight by int8 `wq` (gill_tpu reads `conv_in["w"]`
+        there and raises KeyError, so its quantized pipeline fails on its
+        first call; the port does what that rule evidently means)."""
         ts, ratio = self.scheduler.timesteps(num_inference_steps)
         state = self.scheduler.init_state(latents)
         unet_params = self.params["unet"]
-        unet_dtype = unet_params["conv_in"]["w"].dtype
+        conv_in = unet_params["conv_in"]
+        unet_dtype = (conv_in["w"] if "w" in conv_in else conv_in["b"]).dtype
         do_cfg = guidance_scale > 1.0
         ctx = ctx.to(unet_dtype)
-        for t in ts:
+        # multistep solvers on a non-uniform grid need the NEXT timestep;
+        # uniform-grid schedulers derive it from step_ratio
+        prev_fn = getattr(self.scheduler, "prev_timesteps", None)
+        prevs = prev_fn(ts) if prev_fn is not None else [None] * len(ts)
+        for t, pt in zip(ts, prevs):
             lat_in = torch.cat([latents, latents]) if do_cfg else latents
             t_dev = torch.tensor(float(t), device=latents.device)
             eps = unet_mod.apply(unet_params, self.cfg.unet,
@@ -80,8 +107,9 @@ class StableDiffusionPipeline:
             if do_cfg:
                 eps_u, eps_t = eps.chunk(2)
                 eps = eps_u + guidance_scale * (eps_t - eps_u)
+            kw = {} if prev_fn is None else {"prev_timestep": pt}
             latents, state = self.scheduler.step(state, eps, t, latents,
-                                                 ratio)
+                                                 ratio, **kw)
         return latents
 
     def decode_latents(self, latents):

@@ -10,20 +10,46 @@ On CUDA, attention over >= 64 spatial tokens (self and the 77-token
 cross-attention) runs the flash kernel at the TRUE head dim (40/80/160),
 and every transformer feed-forward runs the fused GEGLU kernel. gill_tpu's
 TPU-only knobs (128-lane head padding of the projections, SUM_LANE,
-OPROJ_SLICE, FUSE_LN) and the int8 modes are not ported.
+OPROJ_SLICE) are not ported; they change nothing in the output.
+
+The non-default modes follow gill_tpu's dispatch, with "the tensor lies on
+a CUDA device" deciding kernel or plain version inside each wrapper (the
+CPU runs the same branches on the plain versions; gill_tpu takes them only
+on a TPU):
+  * GILL_SD_FUSE_LN=1 (`FUSE_LN`, read at import, looked up at call time):
+    at head dims < 128 and without q8, self-attention's q/k/v come from
+    one LN-folded stacked projection (ops/ln_matmul.py K8 over the (3, d, d)
+    stacked weights, built once per parameter tree) and cross-attention's
+    q from the LN-folded K7, k and v being plain products of the context;
+    every feed-forward without int8 weights folds its LayerNorm into the
+    GEGLU kernel (K9);
+  * `apply(..., q8=True)`: attention at head dims < 128 takes the int8-QK
+    kernel (K10);
+  * `quantize_params`: the W8A8 weights of sd_precision="int8" (convs and
+    linears except the attention projections and the time MLPs); their
+    feed-forward is the composed LN, int8 linear, erf gelu, int8 linear.
+At head dim 160 (the 16 x 16, 8 x 8 and mid blocks) FUSE_LN's attention
+fold and q8 do not apply, as in gill_tpu.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from gill_tpu_torch.config import UNetConfig
 from gill_tpu_torch.nn import core as nn
+from gill_tpu_torch.ops import attention as attn_ops
+from gill_tpu_torch.ops import ln_matmul as ln_ops
 from gill_tpu_torch.ops.attention import dot_product_attention
 from gill_tpu_torch.ops.geglu import geglu_ff
+from gill_tpu_torch.ops.quant import quantize_weight
+
+FUSE_LN = os.environ.get("GILL_SD_FUSE_LN", "0") == "1"
 
 
 def timestep_embedding(timesteps, dim: int, flip_sin_to_cos: bool = True,
@@ -144,42 +170,119 @@ def _resnet(p, x, temb, groups: int):
     return x + h
 
 
-def _attention(p, x, ctx, num_heads: int, ln):
+# (3, d, d) stacked q/k/v weights of a self-attention, built once per
+# parameter tree: keyed by the q weight tensor, checked against the k and v
+# tensors and the dtype it was built from
+_QKV = WeakIdKeyDictionary()
+
+
+def _stacked_qkv(p, dtype):
+    wq, wk, wv = (p[n]["w"] for n in "qkv")
+    hit = _QKV.get(wq)
+    if hit is None or hit[0] is not wk or hit[1] is not wv \
+            or hit[2].dtype != dtype:
+        hit = (wk, wv, torch.stack([w.to(dtype) for w in (wq, wk, wv)]))
+        _QKV[wq] = hit
+    return hit[2]
+
+
+def _attention(p, x, ctx, num_heads: int, ln, q8: bool = False):
     """Pre-LayerNorm attention; ctx None = self-attention over the
     normalized x. On CUDA, >= 64 query tokens force the flash kernel, the
-    77-key cross-attention included (gill_tpu's impl='flash' gate)."""
+    77-key cross-attention included (gill_tpu's impl='flash' gate); see the
+    module docstring for FUSE_LN and q8."""
     b, t, d = x.shape
     hd = d // num_heads
+    self_attn = ctx is None
+    impl = "flash" if (x.is_cuda and t >= 64) else "auto"
+    if FUSE_LN and hd < 128 and not q8:
+        assert all("b" not in p[n] for n in "qkv"), \
+            "fused-LN path assumes bias-free q/k/v projections"
+        gamma, beta = ln["scale"].to(x.dtype), ln["bias"].to(x.dtype)
+        if self_attn:
+            qkv = ln_ops.ln_matmul_stacked(x, gamma, beta,
+                                           _stacked_qkv(p, x.dtype))
+            q, k, v = (y.reshape(b, t, num_heads, hd) for y in qkv.unbind(0))
+        else:
+            s = ctx.shape[1]
+            q = ln_ops.ln_matmul(x, gamma, beta, p["q"]["w"].to(x.dtype)
+                                 ).reshape(b, t, num_heads, hd)
+            k = (ctx @ p["k"]["w"].to(x.dtype)).reshape(b, s, num_heads, hd)
+            v = (ctx @ p["v"]["w"].to(x.dtype)).reshape(b, s, num_heads, hd)
+        o = dot_product_attention(q, k, v, causal=False, fast=True, impl=impl)
+        return nn.linear(p["o"], o.reshape(b, t, d))
     x = nn.layer_norm(ln, x, 1e-5)
-    ctx = x if ctx is None else ctx
+    ctx = x if self_attn else ctx
     s = ctx.shape[1]
     q = nn.linear(p["q"], x).reshape(b, t, num_heads, hd)
     k = nn.linear(p["k"], ctx).reshape(b, s, num_heads, hd)
     v = nn.linear(p["v"], ctx).reshape(b, s, num_heads, hd)
-    impl = "flash" if (x.is_cuda and t >= 64) else "auto"
-    o = dot_product_attention(q, k, v, causal=False, fast=True, impl=impl)
+    if q8 and hd < 128:
+        o = attn_ops.flash_attention_q8(q, k, v, scale=1.0 / math.sqrt(hd))
+    else:
+        o = dot_product_attention(q, k, v, causal=False, fast=True, impl=impl)
     return nn.linear(p["o"], o.reshape(b, t, d))
 
 
+def quantize_params(params):
+    """One-time int8 W8A8 quantization of the UNet tree (gill_tpu
+    `unet.quantize_params`): every 2-D linear and 4-D conv weight becomes
+    {"wq", "ws", "b"?} with per-output-channel scales (a conv's wq OIHW in
+    channels_last memory, see ops/quant.py), except the attention
+    projections and the time-embedding MLPs, which stay as they are."""
+    skip = ("attn1", "attn2", "time_fc1", "time_fc2", "time_emb")
+
+    def rec(node, path):
+        if isinstance(node, dict):
+            w = node.get("w")
+            if torch.is_tensor(w) and w.ndim in (2, 4):
+                if any(k in path for k in skip):
+                    return node
+                if w.ndim == 2:
+                    wq, ws = quantize_weight(w, reduce_axes=(0,))
+                else:
+                    wq, ws = quantize_weight(w, reduce_axes=(1, 2, 3))
+                    wq = wq.contiguous(memory_format=torch.channels_last)
+                out = {"wq": wq, "ws": ws}
+                if "b" in node:
+                    out["b"] = node["b"]
+                return out
+            return {k: rec(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [rec(v, path) for v in node]
+        return node
+
+    return rec(params, ())
+
+
 def _geglu_ff(p, h, ln):
-    """GEGLU feed-forward after the block's third LayerNorm: the fused
-    kernel on CUDA, the composed ops (exact-erf gelu) on the CPU."""
-    h = nn.layer_norm(ln, h, 1e-5)
-    return geglu_ff(h, p["geglu"]["w"].to(h.dtype), p["geglu"]["b"].to(h.dtype),
-                    p["ff_out"]["w"].to(h.dtype), p["ff_out"]["b"].to(h.dtype))
+    """GEGLU feed-forward with the block's third LayerNorm: int8 weights
+    take the composed path (LN, int8 linear, exact-erf gelu, int8 linear);
+    otherwise the fused kernel on CUDA (with the LayerNorm folded in under
+    FUSE_LN), the composed ops on the CPU."""
+    if "wq" in p["geglu"]:
+        h = nn.linear(p["geglu"], nn.layer_norm(ln, h, 1e-5))
+        val, gate = h.chunk(2, dim=-1)
+        return nn.linear(p["ff_out"], val * F.gelu(gate))
+    weights = (p["geglu"]["w"].to(h.dtype), p["geglu"]["b"].to(h.dtype),
+               p["ff_out"]["w"].to(h.dtype), p["ff_out"]["b"].to(h.dtype))
+    if FUSE_LN:
+        return geglu_ff(h, *weights, ln_gamma=ln["scale"].to(h.dtype),
+                        ln_beta=ln["bias"].to(h.dtype), ln_eps=1e-5)
+    return geglu_ff(nn.layer_norm(ln, h, 1e-5), *weights)
 
 
-def _tfm_block(p, x, ctx, num_heads: int):
-    x = x + _attention(p["attn1"], x, None, num_heads, p["ln1"])
-    x = x + _attention(p["attn2"], x, ctx, num_heads, p["ln2"])
+def _tfm_block(p, x, ctx, num_heads: int, q8: bool):
+    x = x + _attention(p["attn1"], x, None, num_heads, p["ln1"], q8)
+    x = x + _attention(p["attn2"], x, ctx, num_heads, p["ln2"], q8)
     return x + _geglu_ff(p, x, p["ln3"])
 
 
-def _spatial_tfm(p, x, ctx, num_heads: int, groups: int):
+def _spatial_tfm(p, x, ctx, num_heads: int, groups: int, q8: bool):
     b, h, w, c = x.shape
     y = nn.group_norm(p["norm"], x, groups, eps=1e-6)
     y = nn.conv2d(p["proj_in"], y, padding=0).reshape(b, h * w, c)
-    y = _tfm_block(p["block"], y, ctx, num_heads).reshape(b, h, w, c)
+    y = _tfm_block(p["block"], y, ctx, num_heads, q8).reshape(b, h, w, c)
     return nn.conv2d(p["proj_out"], y, padding=0) + x
 
 
@@ -189,9 +292,11 @@ def upsample_nearest2x(x):
         b, 2 * h, 2 * w, c)
 
 
-def apply(params, cfg: UNetConfig, latents, timesteps, encoder_hidden_states):
+def apply(params, cfg: UNetConfig, latents, timesteps, encoder_hidden_states,
+          q8: bool = False):
     """latents (B, H, W, 4) NHWC; timesteps (B,) or scalar; encoder states
-    (B, 77, 768). Returns the predicted noise (B, H, W, 4)."""
+    (B, 77, 768). Returns the predicted noise (B, H, W, 4). q8: int8-QK
+    attention (gill_tpu `_flash_kernel_i8`; the pipeline never sets it)."""
     x = latents
     timesteps = torch.as_tensor(timesteps, device=x.device)
     if timesteps.ndim == 0:
@@ -209,14 +314,14 @@ def apply(params, cfg: UNetConfig, latents, timesteps, encoder_hidden_states):
         for j, res in enumerate(block["resnets"]):
             x = _resnet(res, x, temb, g)
             if block["attns"]:
-                x = _spatial_tfm(block["attns"][j], x, ctx, nh, g)
+                x = _spatial_tfm(block["attns"][j], x, ctx, nh, g, q8)
             skips.append(x)
         if "downsample" in block:
             x = nn.conv2d(block["downsample"], x, stride=2, padding=1)
             skips.append(x)
 
     x = _resnet(params["mid"]["res1"], x, temb, g)
-    x = _spatial_tfm(params["mid"]["attn"], x, ctx, nh, g)
+    x = _spatial_tfm(params["mid"]["attn"], x, ctx, nh, g, q8)
     x = _resnet(params["mid"]["res2"], x, temb, g)
 
     for block in params["up"]:
@@ -224,7 +329,7 @@ def apply(params, cfg: UNetConfig, latents, timesteps, encoder_hidden_states):
             x = torch.cat([x, skips.pop()], dim=-1)
             x = _resnet(res, x, temb, g)
             if block["attns"]:
-                x = _spatial_tfm(block["attns"][j], x, ctx, nh, g)
+                x = _spatial_tfm(block["attns"][j], x, ctx, nh, g, q8)
         if "upsample" in block:
             x = nn.conv2d(block["upsample"], upsample_nearest2x(x), padding=1)
 

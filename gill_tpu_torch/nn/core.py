@@ -10,6 +10,12 @@ lists) of tensors, so a JAX param tree carries over leaf by leaf
     viewed as NCHW with no copy of either operand;
   * norms take their statistics in fp32 and apply the affine in x's dtype.
 
+Quantized leaves dispatch on their keys, as in gill_tpu: W8A16 {"w8", "ws"}
+(the LM, models/opt.py) and W8A8 {"wq", "ws"} (the SD UNet,
+models/sd/unet.py quantize_params; ops/quant.py). A W8 linear weight is
+(in, out) int8 with one scale per out; a W8A8 linear weight likewise; a
+W8A8 conv weight is OIHW int8 in channels_last memory with one scale per O.
+
 Random init takes an explicit `torch.Generator` and device and follows the
 JAX init distributions (kaiming-uniform fan-in for linear/conv, N(0, std)
 for embeddings, ones/zeros for norms). Layer stacks are allocated directly
@@ -24,6 +30,7 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 
+from gill_tpu_torch.ops import quant
 from gill_tpu_torch.ops import w8_matmul as w8_ops
 
 # ---------------------------------------------------------------------------
@@ -128,7 +135,10 @@ def linear(p, x):
     512) with no "xla" marker take the kernel (gill_tpu: on a TPU); the
     rest — prefill-sized M and the CPU — take the dequant form
     x @ (w8 * ws) (+ b) in x's dtype, as gill_tpu computes it outside any
-    Pallas kernel."""
+    Pallas kernel. W8A8 leaves {"wq", "ws", "b"?} take `quant.int8_linear`
+    (dynamic per-tensor activation scale, int32 sums)."""
+    if "wq" in p:
+        return quant.int8_linear(x, p["wq"], p["ws"], p.get("b"))
     if "w8" in p:
         w8 = p["w8"]
         kdim, n = w8.shape
@@ -187,7 +197,11 @@ def _same_pads(size: int, k: int, stride: int):
 
 
 def conv2d(p, x, stride: int = 1, padding="SAME"):
-    """NHWC conv. `padding` may be 'SAME', 'VALID', or an int."""
+    """NHWC conv. `padding` may be 'SAME', 'VALID', or an int. W8A8
+    leaves {"wq", "ws", "b"?} take `quant.int8_conv2d`."""
+    if "wq" in p:
+        return quant.int8_conv2d(x, p["wq"], p["ws"], p.get("b"),
+                                 stride=stride, padding=padding)
     w = p["w"].to(x.dtype)
     xc = x.permute(0, 3, 1, 2)                 # NCHW view, channels_last
     if padding == "VALID":

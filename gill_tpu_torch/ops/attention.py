@@ -24,6 +24,9 @@ decode behind GILL_DECODE_CHUNK_MIN (default off) is not ported.
 
 `flash_attention` launches the CUDA kernel for CUDA tensors and raises if it
 cannot; a CPU tensor takes `flash_attention_ref`, its plain version.
+`flash_attention_q8` (the UNet's `q8=True` mode, gill_tpu
+`flash_attention_bthd(q8=True)`) does the same with csrc/flash_attn_i8.cu
+and `flash_attention_q8_ref`.
 """
 
 from __future__ import annotations
@@ -205,6 +208,113 @@ def flash_attention(q, k, v, *, causal: bool = False,
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# int8-QK flash attention (csrc/flash_attn_i8.cu)
+# ---------------------------------------------------------------------------
+
+def _int8_sym(x, dims):
+    """Symmetric int8 of x over `dims` (gill_tpu `_flash_kernel_i8`):
+    scale max(amax/127, 1e-12) kept with those dims, values
+    clip(round(x / scale), +-127) as fp32 integers, and the scale."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=dims, keepdim=True) / 127.0,
+                        min=1e-12)
+    return torch.clamp(torch.round(xf / scale), -127, 127), scale
+
+
+def flash_attention_q8_ref(q, k, v, *, scale: float, q_block: int = 1024):
+    """Plain version of the int8-QK kernel, q (B,T,H,D), k/v (B,S,H,D):
+    k quantized per (b, h), q per (b, h, group of q_block rows) (the last
+    group may be partial, its absent rows count as zeros); exact int32
+    scores (products of values <= 127 over D <= 128 stay integers below
+    2^24, so the float64 product is exact) times (sq * sk) * scale in fp32;
+    exact softmax in fp32; p rounded to v's dtype for the PV product with
+    fp32 sums, divided by the fp32 sum and rounded once to q's dtype."""
+    b, t, h, d = q.shape
+    ng = -(-t // q_block)
+    kq, sk = _int8_sym(k, (1, 3))                       # sk (B, 1, H, 1)
+    qg = torch.nn.functional.pad(q.float(), (0, 0, 0, 0, 0, ng * q_block - t))
+    qq, sq = _int8_sym(qg.reshape(b, ng, q_block, h, d), (2, 4))
+    qq = qq.reshape(b, ng * q_block, h, d)[:, :t]
+    sq = sq.expand(b, ng, q_block, h, 1).reshape(b, ng * q_block, h)[:, :t]
+    s32 = torch.einsum("bthd,bshd->bhts", qq.double(), kq.double()).float()
+    c = (sq * sk[:, 0, :, 0][:, None]) * scale          # (B, T, H)
+    logits = s32 * c.permute(0, 2, 1)[..., None]
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhts,bshd->bthd", p.to(v.dtype).float(), v.float())
+    return (o / denom.clamp_min(1e-30).permute(0, 2, 1, 3)).to(q.dtype)
+
+
+def _q8_lib():
+    from gill_tpu_torch.ops import _build
+
+    lib = _build.load("flash_attn_i8")
+    if lib.gill_flash_attn_q8.argtypes is None:
+        i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+        lib.gill_flash_attn_q8.argtypes = [p] * 8 + [i] * 6 + [ll] * 9 + [
+            ctypes.c_float, p]
+        lib.gill_flash_attn_q8.restype = i
+        lib.gill_flash_attn_q8_dp.argtypes = [i]
+        lib.gill_flash_attn_q8_dp.restype = i
+    return lib
+
+
+Q8_MAX_HEAD_DIM = 128
+
+
+def flash_attention_q8(q, k, v, *, scale: float, q_block: int = 1024):
+    """Int8-QK attention, q (B,T,H,D), k/v (B,S,H,D) -> contiguous
+    (B,T,H,D), non-causal. Replaces gill_tpu `flash_attention_bthd(q8=
+    True)` (Pallas `_flash_kernel_i8`): q and k quantized dynamically
+    (q_block = gill_tpu's block_q, 1024 at every UNet shape), int8 QK with
+    int32 sums, exact softmax, bf16 PV. CUDA tensors launch the kernel
+    (bf16, D <= 128, strided views taken as they are) or raise; CPU
+    tensors take `flash_attention_q8_ref`."""
+    b, t, h, d = q.shape
+    s = k.shape[1]
+    if not q.is_cuda:
+        return flash_attention_q8_ref(q, k, v, scale=scale, q_block=q_block)
+    if k.shape != (b, s, h, d) or v.shape != (b, s, h, d):
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if any(x.dtype != torch.bfloat16 for x in (q, k, v)):
+        raise TypeError(f"flash_attention_q8 takes bf16, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if not 0 < d <= Q8_MAX_HEAD_DIM or q_block <= 0 or t == 0 or s == 0:
+        raise ValueError(f"flash_attention_q8: head dim {d} (at most "
+                         f"{Q8_MAX_HEAD_DIM}), q_block {q_block}, T {t}, S {s}")
+    if not (k.device == q.device and v.device == q.device):
+        raise ValueError("q, k and v must share one device")
+    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    lib = _q8_lib()
+    dp = lib.gill_flash_attn_q8_dp(d)
+    dev = q.device
+    out = torch.empty((b, t, h, d), device=dev, dtype=q.dtype)
+    qq = torch.empty((b * h, t, dp), device=dev, dtype=torch.int8)
+    kq = torch.empty((b * h, s, dp), device=dev, dtype=torch.int8)
+    sq = torch.empty((b * h, -(-t // q_block)), device=dev,
+                     dtype=torch.float32)
+    sk = torch.empty((b * h,), device=dev, dtype=torch.float32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.gill_flash_attn_q8(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        qq.data_ptr(), kq.data_ptr(), sq.data_ptr(), sk.data_ptr(),
+        b, t, s, h, d, q_block,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), float(scale), stream)
+    from gill_tpu_torch.ops._build import check
+
+    check(err, "flash_attention_q8")
+    flash_attention_q8.launches += 1
+    return out
+
+
+flash_attention_q8.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,10 @@ gill_tpu and becomes an OIHW view in channels_last memory here (the layout
 otherwise. The CPU parity tests and the end-to-end comparison use these.
 Quantized LM trees (`quantize_params_w8`) carry over too: int8 "w8"
 (L, K, N), fp32 "ws" (L, N), "b", and the empty-tuple "kern"/"xla"
-markers, which stay empty tuples.
+markers, which stay empty tuples. Quantized UNet trees
+(`unet.quantize_params`) carry over too: int8 "wq" (a 4-D conv "wq" goes
+HWIO -> OIHW in channels_last memory like a float conv "w"; its int8
+values are unchanged), fp32 "ws" (out,) and "b".
 """
 
 from __future__ import annotations
@@ -37,10 +40,10 @@ def tree_from_jax(tree, *, device="cpu", dtype: Optional[torch.dtype] = None):
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
-            if k == "w" and not isinstance(v, (dict, list, tuple)) \
+            if k in ("w", "wq") and not isinstance(v, (dict, list, tuple)) \
                     and np.ndim(v) == 4:
                 out[k] = conv_weight_from_hwio(_leaf(v, device, dtype))
-            elif k == "ws":                    # W8 scales stay fp32
+            elif k == "ws":                    # W8 / W8A8 scales stay fp32
                 out[k] = tree_from_jax(v, device=device)
             else:
                 out[k] = tree_from_jax(v, device=device, dtype=dtype)
@@ -50,6 +53,28 @@ def tree_from_jax(tree, *, device="cpu", dtype: Optional[torch.dtype] = None):
     if isinstance(tree, (list, tuple)):
         return [tree_from_jax(v, device=device, dtype=dtype) for v in tree]
     return _leaf(tree, device, dtype)
+
+
+def tree_to_numpy(tree):
+    """The inverse layout map: this package's tree -> numpy leaves in
+    gill_tpu's layout (4-D "w" / "wq" OIHW -> HWIO; bf16 leaves as fp32,
+    which holds them exactly). Lets a test make random weights with the
+    fast torch init and hand the same values to gill_tpu."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            if k in ("w", "wq") and torch.is_tensor(v) and v.ndim == 4:
+                v = v.permute(2, 3, 1, 0)
+            out[k] = tree_to_numpy(v)
+        return out
+    if isinstance(tree, tuple) and not tree:
+        return ()
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_numpy(v) for v in tree]
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return np.ascontiguousarray(t.numpy())
 
 
 def _expect(tree, keys, what):

@@ -31,13 +31,12 @@ STEPS = 4     # denoise steps: PLMS warm-up, orders 1.5 to 3
 
 
 @pytest.fixture(scope="module")
-def models(tmp_path_factory):
-    from gill_tpu.api import load_gill as jload_gill
+def ckpt_dir(tmp_path_factory):
+    """The tiny checkpoint directory of tests/test_load_gill.py."""
     from gill_tpu.config import GILLConfig
     from gill_tpu.models.gill import GILLCore
     from gill_tpu.tokenizer import GPT2BPETokenizer, setup_gill_tokenizer
     from gill_tpu.utils.ckpt import save_checkpoint
-    from gill_tpu_torch.api import load_gill as tload_gill
 
     d = tmp_path_factory.mktemp("ckpt")
     cfg = GILLConfig(opt_version="test/opt-tiny",
@@ -59,7 +58,15 @@ def models(tmp_path_factory):
                     f)
     np.savez(d / "decision_model.npz", w=rng.randn(16, 2).astype(np.float32),
              b=np.zeros(2, np.float32))
+    return d
 
+
+@pytest.fixture(scope="module")
+def models(ckpt_dir):
+    from gill_tpu.api import load_gill as jload_gill
+    from gill_tpu_torch.api import load_gill as tload_gill
+
+    d = ckpt_dir
     old = os.environ.get("GILL_TPU_TINY_SD")
     os.environ["GILL_TPU_TINY_SD"] = "1"
     try:
@@ -230,3 +237,30 @@ def test_batch_api_matches_gill_tpu(models, precision):
         assert g[1]["ret"] == w[1]["ret"] == []
         assert g[1]["decision"][0] == w[1]["decision"][0]
         _close(g[1]["gen"][0], w[1]["gen"][0])
+
+
+def test_port_int8_sd_img_route(ckpt_dir, monkeypatch):
+    """load_gill(sd_precision="int8") on the tiny checkpoint: the W8A8 UNet
+    drives the forced [IMG] route to a finite image."""
+    from gill_tpu_torch.api import load_gill as tload_gill
+
+    monkeypatch.setenv("GILL_TPU_TINY_SD", "1")
+    tm = tload_gill(str(ckpt_dir), device="cpu",
+                    decision_model_fn="decision_model.npz", load_sd=True,
+                    dtype=torch.float32, sd_precision="int8")
+    assert tm.sd_pipe.quantized and "wq" in tm.sd_pipe.params["unet"]["conv_in"]
+    images = []
+    decode = tm.sd_pipe.decode_latents
+    monkeypatch.setattr(tm.sd_pipe, "decode_latents",
+                        lambda lat: images.append(decode(lat)) or images[-1])
+    out = tm.generate_for_images_and_texts(["A picture of"], num_words=4,
+                                           gen_scale_factor=1e6,
+                                           num_inference_steps=3)
+    assert len(out) == 2 and isinstance(out[1], dict)
+    assert len(out[1]["gen"]) == 1 and len(images) == 1
+    size = tm.sd_pipe.cfg.default_size
+    assert tuple(images[0].shape) == (1, size, size, 3)
+    assert bool(torch.isfinite(images[0]).all())
+    with pytest.raises(ValueError):
+        tload_gill(str(ckpt_dir), device="cpu", load_sd=False,
+                   sd_precision="fp8")

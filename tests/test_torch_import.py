@@ -25,7 +25,9 @@ bad = sorted(k for k in sys.modules
 print(len(names), bad)
 assert len(names) >= 20, names
 for needed in ("gill_tpu_torch.serve.engine", "gill_tpu_torch.serve.gill_engine",
-               "gill_tpu_torch.ops.w8_matmul", "gill_tpu_torch.ops.decode_attn"):
+               "gill_tpu_torch.ops.w8_matmul", "gill_tpu_torch.ops.decode_attn",
+               "gill_tpu_torch.ops.quant", "gill_tpu_torch.ops.ln_matmul",
+               "gill_tpu_torch.serve.sd_queue"):
     assert needed in names, needed
 assert not bad, bad
 """

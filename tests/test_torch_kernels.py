@@ -15,6 +15,12 @@ outputs and 1e-5 of it for fp32 outputs (fp32 sums in another order, one
 rounding); the decode attention the same per batch row, from that row's
 own largest output (a row averages its valid cache rows of v, so long rows
 are far smaller than a parked row's own v1), and a parked row exactly v1.
+The LN-folded kernels (LN-matmul, stacked LN-matmul, LN-folded GEGLU) four
+bf16 ulps of the largest output, as GEGLU (the plain version rounds its
+LayerNorm and product sums to bf16 at other points, and its row statistics
+sum in another order); the int8-QK attention two bf16 ulps (both quantize
+identically, so the int8 values and int32 scores are equal and only the
+softmax's summation order differs).
 """
 
 import pytest
@@ -23,6 +29,7 @@ import torch
 from gill_tpu_torch.ops import attention as attn
 from gill_tpu_torch.ops import decode_attn
 from gill_tpu_torch.ops import geglu
+from gill_tpu_torch.ops import ln_matmul as lnm
 from gill_tpu_torch.ops import w8_matmul as w8
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -228,3 +235,151 @@ def test_decode_step_takes_the_kernel_through_the_dispatcher(cuda):
     want = attn._decode_attention(q, cache[0], cache[1], scale=128 ** -0.5,
                                   kv_offset=off, extra_kv=(k1, v1))
     _assert_rows_close(got, want, 4 * 2.0 ** -7)
+
+
+def _ulps(got, want, n):
+    want = want.float()
+    return float((got.float() - want).abs().max()) <= n * 2.0 ** -7 * float(
+        want.abs().max())
+
+
+def _ln_case(g, dev, m, d, k):
+    bf = torch.bfloat16
+    x = (2 * torch.randn(m, d, device=dev, generator=g) + 0.3).to(bf)
+    gamma = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(bf)
+    beta = (0.1 * torch.randn(d, device=dev, generator=g)).to(bf)
+    w = (torch.randn(k, d, d, device=dev, generator=g) / d ** 0.5).to(bf)
+    return x, gamma, beta, w
+
+
+@pytest.mark.parametrize("m,d", [(8192, 320), (2048, 640), (77, 320),
+                                 (130, 640)])
+def test_ln_matmul_kernels_match_plain(cuda, m, d):
+    """K7 (the cross-attention q) and K8 (self-attention q/k/v) at the
+    UNet's shapes and ragged row counts."""
+    g = torch.Generator(cuda).manual_seed(m + d)
+    x, gamma, beta, w = _ln_case(g, cuda, m, d, 3)
+    before = (lnm.ln_matmul.launches, lnm.ln_matmul_stacked.launches)
+    got = lnm.ln_matmul(x, gamma, beta, w[0])
+    got3 = lnm.ln_matmul_stacked(x.view(2, m // 2, d) if m % 2 == 0 else x,
+                                 gamma, beta, w)
+    torch.cuda.synchronize()
+    assert (lnm.ln_matmul.launches, lnm.ln_matmul_stacked.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert _ulps(got, lnm.ln_matmul_ref(x, gamma, beta, w[0]), 4)
+    want3 = lnm.ln_matmul_stacked_ref(x, gamma, beta, w)
+    assert tuple(got3.reshape(3, m, d).shape) == tuple(want3.shape)
+    assert _ulps(got3.reshape(3, m, d), want3, 4)
+    assert got3.is_contiguous()
+
+
+def test_ln_matmul_kernel_takes_strided_views(cuda):
+    """A column slice of a wider activation (non-contiguous rows) is copied
+    to an aligned buffer before the kernel's vector loads."""
+    g = torch.Generator(cuda).manual_seed(7)
+    x, gamma, beta, w = _ln_case(g, cuda, 300, 320, 1)
+    wide = torch.cat([x, x[:, :8]], dim=1)[:, :320]
+    assert not wide.is_contiguous()
+    assert _ulps(lnm.ln_matmul(wide, gamma, beta, w[0]),
+                 lnm.ln_matmul_ref(x, gamma, beta, w[0]), 4)
+
+
+def test_ln_matmul_kernels_refuse_what_they_do_not_take(cuda):
+    g = torch.Generator(cuda).manual_seed(8)
+    x, gamma, beta, w = _ln_case(g, cuda, 64, 320, 3)
+    with pytest.raises(ValueError):
+        lnm.ln_matmul(x[:, :256], gamma[:256], beta[:256], w[0, :256, :256])
+    with pytest.raises(ValueError):
+        lnm.ln_matmul(x, gamma, beta, w[0, :, :100])       # n % 64
+    with pytest.raises(ValueError):
+        lnm.ln_matmul_stacked(x, gamma, beta, torch.cat([w, w[:1]]))
+    with pytest.raises(TypeError):
+        lnm.ln_matmul(x.float(), gamma.float(), beta.float(), w[0].float())
+
+
+@pytest.mark.parametrize("m,d", [(8192, 320), (2048, 640), (512, 1280),
+                                 (128, 1280), (77, 320)])
+def test_geglu_ln_kernel_matches_plain(cuda, m, d):
+    """K9: K3 with the LayerNorm folded in; K3's own count is untouched."""
+    g = torch.Generator(cuda).manual_seed(m * d)
+    bf = torch.bfloat16
+    x = (2 * torch.randn(m, d, device=cuda, generator=g) - 0.2).to(bf)
+    gamma = (1 + 0.1 * torch.randn(d, device=cuda, generator=g)).to(bf)
+    beta = (0.1 * torch.randn(d, device=cuda, generator=g)).to(bf)
+    w1 = (torch.randn(d, 8 * d, device=cuda, generator=g) / d ** 0.5).to(bf)
+    b1 = (0.1 * torch.randn(8 * d, device=cuda, generator=g)).to(bf)
+    w2 = (torch.randn(4 * d, d, device=cuda, generator=g) / (2 * d ** 0.5)
+          ).to(bf)
+    b2 = (0.1 * torch.randn(d, device=cuda, generator=g)).to(bf)
+    before = (geglu.geglu_ff.launches, geglu.geglu_ff.ln_launches)
+    got = geglu.geglu_ff(x, w1, b1, w2, b2, ln_gamma=gamma, ln_beta=beta)
+    torch.cuda.synchronize()
+    assert (geglu.geglu_ff.launches, geglu.geglu_ff.ln_launches) == (
+        before[0], before[1] + 1)
+    want = geglu.geglu_ff_ref(x, w1, b1, w2, b2, ln_gamma=gamma, ln_beta=beta)
+    assert _ulps(got, want, 4)
+    # a strided view of the same rows gives the same result
+    wide = torch.cat([x, x[:, :8]], dim=1)[:, :d]
+    again = geglu.geglu_ff(wide, w1, b1, w2, b2, ln_gamma=gamma, ln_beta=beta)
+    assert torch.equal(again, got)
+    with pytest.raises(ValueError):
+        geglu.geglu_ff(x, w1, b1, w2, b2, ln_gamma=gamma[:8], ln_beta=beta)
+    with pytest.raises(TypeError):
+        geglu.geglu_ff(x, w1, b1, w2, b2, ln_gamma=gamma.float(),
+                       ln_beta=beta)
+
+
+@pytest.mark.parametrize("t,s,d,q_block", [
+    (4096, 4096, 40, 1024), (4096, 77, 40, 1024), (1024, 1024, 80, 1024),
+    (1024, 77, 80, 1024), (200, 130, 64, 64), (96, 77, 40, 50)])
+def test_flash_q8_kernel_matches_plain(cuda, t, s, d, q_block):
+    """K10 at the UNet's q8 shapes (B 2, H 8), a ragged case with partial
+    query groups not aligned to the kernel's 64-row tiles, and q as a view
+    of a fused q/k/v projection."""
+    g = torch.Generator(cuda).manual_seed(t + s + d)
+    bf = torch.bfloat16
+    b, h = (2, 8) if t >= 1024 else (1, 3)
+    qkv = torch.randn(b, t, 3, h, d, device=cuda, generator=g).to(bf)
+    q = qkv[:, :, 0]
+    k = (1.5 * torch.randn(b, s, h, d, device=cuda, generator=g)).to(bf)
+    v = torch.randn(b, s, h, d, device=cuda, generator=g).to(bf)
+    before = attn.flash_attention_q8.launches
+    got = attn.flash_attention_q8(q, k, v, scale=d ** -0.5, q_block=q_block)
+    torch.cuda.synchronize()
+    assert attn.flash_attention_q8.launches == before + 1
+    assert got.is_contiguous() and got.dtype == bf
+    want = attn.flash_attention_q8_ref(q, k, v, scale=d ** -0.5,
+                                       q_block=q_block)
+    assert _ulps(got, want, 2)
+
+
+def test_flash_q8_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 64, 2, 40, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        attn.flash_attention_q8(q.float(), q.float(), q.float(), scale=1.0)
+    big = torch.zeros(1, 64, 2, 160, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        attn.flash_attention_q8(big, big, big, scale=1.0)
+    with pytest.raises(ValueError):
+        attn.flash_attention_q8(q, q[:, :, :1], q, scale=1.0)
+
+
+@pytest.mark.parametrize("m,k,n", [(8192, 36, 320), (8192, 2880, 4),
+                                   (8192, 320, 2560), (10, 64, 64),
+                                   (17, 20, 13)])
+def test_int_mm_pads_to_what_cublas_takes(cuda, m, k, n):
+    """The W8A8 products (torch._int_mm, outside any kernel of the port, as
+    gill_tpu leaves them to XLA): exact int32 sums at conv_in's K = 36,
+    conv_out's N = 4, a GEGLU projection and row counts under 24."""
+    from gill_tpu_torch.ops import quant
+
+    g = torch.Generator(cuda).manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), device=cuda, generator=g,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), device=cuda, generator=g,
+                      dtype=torch.int8)
+    want = a.cpu().long() @ b.cpu().long()
+    for bb in (b, b.t().contiguous().t()):
+        got = quant.int_mm(a, bb)
+        assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+        assert torch.equal(got.cpu().long(), want)
