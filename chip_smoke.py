@@ -53,7 +53,15 @@
         50-step job each, which must coalesce into one batch padded to 4,
         and request (b) through the queue's route;
    (D4) a 25-step DPM-Solver++ generation.
-7. Checks: finite outputs of the expected shapes; request (a) gives the
+7. Probe scripts (slice 4), phase E: the probe kernels against their plain
+   versions at the probes' full shapes (the repeated-product probe S1 at
+   its seven cases, the sweep's flash variants S2 and S3 at B 8, S 4096,
+   H 8, D 40), then every probe of gill_tpu_torch/scripts/ once at its
+   default shapes with its repetitions cut, printing its rows (attn_mxu_
+   probe, attn_sweep, int8_probe, profile_sd, profile_sd_ablate,
+   profile_ln_fuse, profile_prefix_decode); S1-S3 must launch there and
+   no probe row may fail.
+8. Checks: finite outputs of the expected shapes; request (a) gives the
    same tokens with every kernel swapped for its plain version; CLIP, the
    OPT prefill, one full-width UNet step, the VAE decode and one W8 decode
    step of phase A agree with their plain-version runs within stated
@@ -89,6 +97,11 @@ T_START = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
+# the card's peaks, bound(), the event timer and the profiler summary are
+# shared with the probe scripts
+from gill_tpu_torch.scripts._timing import (bound, cuda_ms,  # noqa: E402
+                                            device_profile, smi_line)
+
 FLASH_SRC = "gill_tpu_torch/csrc/flash_attn.cu"
 GEGLU_SRC = "gill_tpu_torch/csrc/geglu.cu"
 W8_SRC = "gill_tpu_torch/csrc/w8_matmul.cu"
@@ -106,48 +119,15 @@ LN3_REPLACES = "gill_tpu/ops/ln_matmul.py:80 ln_matmul_stacked (_kernel_stacked)
 GEGLU_LN_REPLACES = "gill_tpu/ops/geglu.py:168 geglu_ff(ln_gamma=...) (_kernel_ln)"
 I8_REPLACES = ("gill_tpu/ops/attention.py:446 flash_attention_bthd(q8=True) "
                "(_flash_kernel_i8, :349)")
-
-# the card's published peaks (NVIDIA H100 SXM data sheet, dense)
-HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
+MM_PROBE_SRC = "gill_tpu_torch/csrc/mm_probe.cu"
+FV_SRC = "gill_tpu_torch/csrc/flash_variants.cu"
+MM_PROBE_REPLACES = "scripts/attn_mxu_probe.py:40 mk(...).run (kernel :27)"
+FV_REPLACES = "scripts/attn_sweep.py:104 make_flash(...) (kernel :43)"
+NOMAX_REPLACES = "scripts/attn_sweep.py:171 make_flash_nomax(...) (kernel :128)"
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def smi_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
-
-
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device milliseconds of `fn` over `reps` back-to-back calls
-    between two CUDA events, after one warm-up. The device first spins
-    ~10 ms (torch.cuda._sleep) while the host queues the calls, so the
-    host's launch overhead is not in the time."""
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def bound(nbytes: float, flops: float, kind: str, more=()):
-    """(ms, "bytes" | "operations"): the least time the card could take;
-    `more` adds (operations, kind) pairs run at other peak rates."""
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = sum(f / PEAK_FLOPS[k] for f, k in ((flops, kind), *more))
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -243,20 +223,11 @@ def _flash_pairs(t: int, s: int, causal: bool) -> int:
     return sum(min(s, i + s - t + 1) for i in range(t))
 
 
-def kernel_phase(torch, dev):
-    import torch.nn.functional as F
-
-    from gill_tpu_torch.ops.attention import flash_attention, flash_attention_ref
-    from gill_tpu_torch.ops.decode_attn import (prefix_decode_attention,
-                                                prefix_decode_attention_ref)
-    from gill_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ref
-    from gill_tpu_torch.ops.w8_matmul import w8_matmul, w8_matmul_ref
-
-    g = torch.Generator(dev).manual_seed(1234)
-    rows, failures = [], []
-
+def recorder(rows, failures):
+    """record(row, err, tol, ok=None, note=""): appends a kernel row with
+    its error and tolerance and logs it; `ok` defaults to err <= tol (a
+    per-row check passes its own), and a row that is not ok is a failure."""
     def record(row, err, tol, ok=None, note=""):
-        """`ok` defaults to err <= tol; a per-row check passes its own."""
         row["max_abs_err"], row["tol"] = err, tol
         rows.append(row)
         lib = row["library_ms"]
@@ -268,6 +239,21 @@ def kernel_phase(torch, dev):
         if not (err <= tol if ok is None else ok):
             failures.append(f"{row['name']} {row['site']}: {err} > {tol}"
                             f"{note}")
+    return record
+
+
+def kernel_phase(torch, dev):
+    import torch.nn.functional as F
+
+    from gill_tpu_torch.ops.attention import flash_attention, flash_attention_ref
+    from gill_tpu_torch.ops.decode_attn import (prefix_decode_attention,
+                                                prefix_decode_attention_ref)
+    from gill_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ref
+    from gill_tpu_torch.ops.w8_matmul import w8_matmul, w8_matmul_ref
+
+    g = torch.Generator(dev).manual_seed(1234)
+    rows, failures = [], []
+    record = recorder(rows, failures)
 
     for site, b, t, s, h, d, dt, causal in FLASH_SHAPES:
         dtype = getattr(torch, dt)
@@ -288,14 +274,14 @@ def kernel_phase(torch, dev):
                "source": FLASH_SRC, "replaces": FLASH_REPLACES,
                "shape": f"q({b},{t},{h},{d}) kv({b},{s},{h},{d}) {dt}"
                         f"{' causal' if causal else ''}",
-               "ms": cuda_ms(torch, lambda: flash_attention(
+               "ms": cuda_ms(lambda: flash_attention(
                    q, k, v, causal=causal), reps),
-               "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(
+               "plain_ms": cuda_ms(lambda: flash_attention_ref(
                    q, k, v, causal=causal), reps),
                "bound_ms": bms, "bound_by": by,
                # the same function in one PyTorch call (T == S or no mask
                # at every shape, so SDPA's top-left causal alignment agrees)
-               "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=causal), reps)}
         record(row, err, tol)
         del q, k, v, qt, kt, vt, out, ref
@@ -317,8 +303,8 @@ def kernel_phase(torch, dev):
         row = {"name": "geglu_ff", "site": site, "route": "cuda",
                "source": GEGLU_SRC, "replaces": GEGLU_REPLACES,
                "shape": f"x({m},{d}) bfloat16",
-               "ms": cuda_ms(torch, lambda: geglu_ff(x, w1, b1, w2, b2), 20),
-               "plain_ms": cuda_ms(torch, lambda: geglu_ff_ref(
+               "ms": cuda_ms(lambda: geglu_ff(x, w1, b1, w2, b2), 20),
+               "plain_ms": cuda_ms(lambda: geglu_ff_ref(
                    x, w1, b1, w2, b2), 20),
                "bound_ms": bms, "bound_by": by, "library_ms": None}
         record(row, err, geglu_tol(ref.float()))
@@ -337,13 +323,15 @@ def kernel_phase(torch, dev):
         bms, by = bound(kdim * n + (m * kdim + m * n + n) * esize + 4 * n,
                         2.0 * m * kdim * n,
                         "fp32" if dtype == torch.float32 else "bf16")
+        lib_ms, lib_note = int8pack_ms(torch, x, w8, ws)
         row = {"name": "w8_matmul", "site": site, "route": "cuda",
                "source": W8_SRC, "replaces": W8_REPLACES,
                "shape": f"x({m},{kdim}) {dt} w8({kdim},{n})",
-               "ms": cuda_ms(torch, lambda: w8_matmul(x, w8, ws, bias), 20),
-               "plain_ms": cuda_ms(torch, lambda: w8_matmul_ref(
+               "ms": cuda_ms(lambda: w8_matmul(x, w8, ws, bias), 20),
+               "plain_ms": cuda_ms(lambda: w8_matmul_ref(
                    x, w8, ws, bias), 20),
-               "bound_ms": bms, "bound_by": by, "library_ms": None}
+               "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+               "library_computes": lib_note}
         record(row, err, out_tol(torch, ref))
         del x, w8, out, ref
     h, d = 32, 128
@@ -374,9 +362,9 @@ def kernel_phase(torch, dev):
                "replaces": DECODE_REPLACES,
                "shape": f"q({b},1,{h},{d}) cache({b},{s},{h},{d}) bfloat16, "
                         f"{n_rows} valid rows",
-               "ms": cuda_ms(torch, lambda: prefix_decode_attention(
+               "ms": cuda_ms(lambda: prefix_decode_attention(
                    q, k, v, lens, k1, v1, scale=scale), 20),
-               "plain_ms": cuda_ms(torch, lambda: prefix_decode_attention_ref(
+               "plain_ms": cuda_ms(lambda: prefix_decode_attention_ref(
                    q, k, v, lens, k1, v1, scale=scale), 20),
                "bound_ms": bms, "bound_by": by, "library_ms": None,
                "tol_rule": "per row", "worst_row": worst,
@@ -390,6 +378,16 @@ def kernel_phase(torch, dev):
         del pool, k, v
     kernel_phase_sd_modes(torch, dev, g, record)
     return rows, failures
+
+
+def int8pack_ms(torch, x, w8, ws):
+    """(ms, note): PyTorch's int8-weight product `torch._weight_int8pack_mm`
+    (x @ (w8 * ws) with per-channel scales, no bias: the W8 matmul's
+    function but for the bias add) timed as K4's library yardstick. An
+    error it raises fails the run."""
+    w8t, sc = w8.t().contiguous(), ws.to(x.dtype)
+    return (cuda_ms(lambda: torch._weight_int8pack_mm(x, w8t, sc), 20),
+            "torch._weight_int8pack_mm: x @ (w8 * ws), the bias add left out")
 
 
 def kernel_phase_sd_modes(torch, dev, g, record):
@@ -431,8 +429,8 @@ def kernel_phase_sd_modes(torch, dev, g, record):
             row = {"name": name, "site": site, "route": "cuda",
                    "source": src, "replaces": rep,
                    "shape": f"x({m},{d}) w({kk},{d},{d}) bfloat16",
-                   "ms": cuda_ms(torch, fn, 20),
-                   "plain_ms": cuda_ms(torch, ref, 20),
+                   "ms": cuda_ms(fn, 20),
+                   "plain_ms": cuda_ms(ref, 20),
                    "bound_ms": bms, "bound_by": by, "library_ms": None}
             record(row, err, geglu_tol(want.float()))
     for site, m, d in GEGLU_SHAPES:
@@ -454,9 +452,9 @@ def kernel_phase_sd_modes(torch, dev, g, record):
         row = {"name": "geglu_ff_ln", "site": site, "route": "cuda",
                "source": GEGLU_SRC, "replaces": GEGLU_LN_REPLACES,
                "shape": f"x({m},{d}) bfloat16, LayerNorm folded",
-               "ms": cuda_ms(torch, lambda: geglu_ff(x, w1, b1, w2, b2,
+               "ms": cuda_ms(lambda: geglu_ff(x, w1, b1, w2, b2,
                                                      **ln), 20),
-               "plain_ms": cuda_ms(torch, lambda: geglu_ff_ref(
+               "plain_ms": cuda_ms(lambda: geglu_ff_ref(
                    x, w1, b1, w2, b2, **ln), 20),
                "bound_ms": bms, "bound_by": by, "library_ms": None}
         record(row, err, geglu_tol(want.float()))
@@ -477,13 +475,13 @@ def kernel_phase_sd_modes(torch, dev, g, record):
         row = {"name": "flash_attention_q8", "site": site, "route": "cuda",
                "source": I8_SRC, "replaces": I8_REPLACES,
                "shape": f"q({b},{t},{h},{d}) kv({b},{s},{h},{d}) bfloat16",
-               "ms": cuda_ms(torch, lambda: flash_attention_q8(
+               "ms": cuda_ms(lambda: flash_attention_q8(
                    q, k, v, scale=sc), reps),
-               "plain_ms": cuda_ms(torch, lambda: flash_attention_q8_ref(
+               "plain_ms": cuda_ms(lambda: flash_attention_q8_ref(
                    q, k, v, scale=sc), reps),
                "bound_ms": bms, "bound_by": by,
                # the exact bf16 attention that K10 approximates
-               "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, scale=sc), reps),
                "library_computes": "exact bf16 attention (SDPA), the "
                                    "function K10 approximates"}
@@ -531,16 +529,11 @@ def plain_kernels():
             setattr(mod, name, fn)
 
 
-KERNELS = ("flash_attention", "geglu_ff", "w8_matmul",
-           "prefix_decode_attention", "ln_matmul", "ln_matmul_stacked",
-           "geglu_ff_ln", "flash_attention_q8")
-
-
 def _counters():
     """{kernel name: (wrapper, attribute holding its launch count)}; the
     LN-folded GEGLU counts on the GEGLU wrapper's own `ln_launches`."""
-    from gill_tpu_torch.ops import (attention, decode_attn, geglu, ln_matmul,
-                                    w8_matmul)
+    from gill_tpu_torch.ops import (attention, decode_attn, flash_variants,
+                                    geglu, ln_matmul, mm_probe, w8_matmul)
 
     return {"flash_attention": (attention.flash_attention, "launches"),
             "geglu_ff": (geglu.geglu_ff, "launches"),
@@ -550,7 +543,10 @@ def _counters():
             "ln_matmul": (ln_matmul.ln_matmul, "launches"),
             "ln_matmul_stacked": (ln_matmul.ln_matmul_stacked, "launches"),
             "geglu_ff_ln": (geglu.geglu_ff, "ln_launches"),
-            "flash_attention_q8": (attention.flash_attention_q8, "launches")}
+            "flash_attention_q8": (attention.flash_attention_q8, "launches"),
+            "mm_probe": (mm_probe.mm_probe, "launches"),
+            "flash_variant": (flash_variants.flash_variant, "launches"),
+            "flash_nomax": (flash_variants.flash_nomax, "launches")}
 
 
 def zero_launches():
@@ -826,42 +822,6 @@ def serve_trace(n: int, seed: int = 7):
         .tolist(), max_new_tokens=int(rng.randint(16, 193))) for i in range(n)]
 
 
-def device_profile(torch, fn, top: int = 8) -> dict:
-    """torch.profiler's device trace of `fn`: the share of the device's
-    active span (first kernel start to last kernel end) in which some
-    kernel or copy ran (None when the trace holds no device events), the
-    number of device events, and the `top` kernels by device time (us)."""
-    from collections import Counter
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    if not spans:
-        return {"busy_share": None, "device_events": 0, "top_us": {}}
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for a, b in spans[1:]:
-        if a > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    busy += cur_e - cur_s
-    by_name = Counter()
-    for e in events:
-        by_name[e.name[:60]] += e.time_range.elapsed_us()
-    return {"busy_share": busy / max(cur_e - spans[0][0], 1e-9),
-            "device_events": len(spans), "active_span_us":
-            cur_e - spans[0][0], "busy_us": busy,
-            "top_us": dict(by_name.most_common(top))}
-
-
 def timed(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -928,7 +888,7 @@ def phase_a(torch, lm8, cfg, failures):
     rep["decode_step_ms_with_k6"] = [t for t, p in zip(times, order) if not p]
     rep["decode_step_ms_plain_decode"] = [t for t, p in zip(times, order) if p]
     refilled()
-    prof = device_profile(torch, lambda: eng._run_chunk().numpy())
+    prof = device_profile(lambda: eng._run_chunk().numpy())
     rep["profile_one_chunk"] = prof
     if prof["busy_share"] is not None:
         # the profiler slows the host, so its own busy share reads low: set
@@ -1296,17 +1256,153 @@ def phase_d(torch, dev, model, prompt_b):
     return rep, failures
 
 
+# ---------------------------------------------------------------------------
+# probe scripts (slice 4)
+# ---------------------------------------------------------------------------
+
+def probe_kernel_rows(torch, dev, record):
+    """S1's seven cases and every S2/S3 variant of the sweep at the probes'
+    full shapes, each against its plain version; each row goes to
+    `record`."""
+    import torch.nn.functional as F
+
+    from gill_tpu_torch.ops import flash_variants as fv
+    from gill_tpu_torch.ops import mm_probe as mp
+    from gill_tpu_torch.scripts import attn_mxu_probe, attn_sweep
+
+    for case, m, k, n, dtype in attn_mxu_probe.CASES:
+        a, b = attn_mxu_probe.operands(m, k, n, dtype, dev)
+        out, want = mp.mm_probe(a, b), mp.mm_probe_ref(a, b)
+        torch.cuda.synchronize()
+        i8 = dtype == "int8"
+        # int8: exact int32 sums; bf16: fp32 sums of exact products in
+        # another order, 1e-5 of the largest output
+        err = float((out.double() - want.double()).abs().max())
+        tol = 0.0 if i8 else 1e-5 * float(want.abs().max())
+        bms, by = bound((m * k + k * n) * a.element_size() + 4 * m * n,
+                        2.0 * m * k * n * mp.REPS, "int8" if i8 else "bf16")
+        row = {"name": "mm_probe", "site": case.split()[0], "route": "cuda",
+               "source": MM_PROBE_SRC, "replaces": MM_PROBE_REPLACES,
+               "shape": f"a({m},{k}) b({k},{n}) {dtype}, {mp.REPS} products",
+               "ms": cuda_ms(lambda: mp.mm_probe(a, b), 20),
+               "plain_ms": cuda_ms(lambda: mp.mm_probe_ref(a, b), 5),
+               "bound_ms": bms, "bound_by": by,
+               "library_ms": mp.REPS * cuda_ms(
+                   lambda: attn_mxu_probe.library_call(a, b), 20),
+               "library_computes": f"{mp.REPS} x one "
+                                   f"{'torch._int_mm' if i8 else 'torch.matmul'}"
+                                   f" product"}
+        record(row, err, tol)
+        del a, b, out, want
+    b_, s_, h_, d_ = attn_sweep.SHAPE
+    q, k, v = attn_sweep.inputs(attn_sweep.SHAPE, dev)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    bms, by = bound(4 * b_ * s_ * h_ * d_ * 2, 4.0 * b_ * h_ * s_ * s_ * d_,
+                    "bf16")
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 5)
+    for spec in attn_sweep.VARIANTS:
+        name, _, _, probs, k_t, nomax = spec
+        fn, bq, bk = attn_sweep.build(spec, s_)
+        if nomax:
+            ref = lambda: fv.flash_nomax_ref(q, k, v)  # noqa: E731
+        else:
+            ref = lambda: fv.flash_variant_ref(  # noqa: E731
+                q, k, v, block_k=bk, bf16_probs=probs == "bfloat16")
+        out, want = fn(q, k, v), ref()
+        torch.cuda.synchronize()
+        err = float((out.float() - want.float()).abs().max())
+        row = {"name": "flash_nomax" if nomax else "flash_variant",
+               "site": name, "route": "cuda",
+               "source": FV_SRC,
+               "replaces": NOMAX_REPLACES if nomax else FV_REPLACES,
+               "shape": f"q/k/v({b_},{s_},{h_},{d_}) bfloat16, block_q {bq} "
+                        f"block_k {bk}{' kt' if k_t else ''}",
+               "hopper_tile": "x".join(map(str, fv.hopper_tile(bq))),
+               "ms": cuda_ms(lambda: fn(q, k, v), 5),
+               "plain_ms": cuda_ms(ref, 3),
+               "bound_ms": bms, "bound_by": by, "library_ms": sdpa_ms,
+               "library_computes": "exact bf16 attention (SDPA)"}
+        # one fp32 quotient rounded to bf16 on both sides, sums in another
+        # order: two bf16 ulps of the largest output, as for K1/K2
+        record(row, err, 2.0 * 2.0 ** -7 * float(want.float().abs().max()))
+        del out, want
+        torch.cuda.empty_cache()
+
+
+def phase_e(torch, dev):
+    """The probe kernels S1-S3 against their plain versions, then every
+    ported probe script's measuring function once at its default shapes
+    with its repetitions cut (it prints its rows). The launch counts are set
+    to 0 just before the probes and read just after: S1-S3 must have
+    launched there. Returns (kernel rows, report, failures)."""
+    from gill_tpu_torch.scripts import (attn_mxu_probe, attn_sweep,
+                                        int8_probe, profile_ln_fuse,
+                                        profile_prefix_decode, profile_sd,
+                                        profile_sd_ablate)
+
+    rows, failures, rep = [], [], {}
+    t0 = time.perf_counter()
+    probe_kernel_rows(torch, dev, recorder(rows, failures))
+    rep["kernel_rows_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    probes = [("attn_mxu_probe", lambda: attn_mxu_probe.probe(
+                   device="cuda", n1=1, n2=3)),
+              ("attn_sweep", lambda: attn_sweep.sweep(
+                  device="cuda", n1=1, n2=3)),
+              ("int8_probe", lambda: int8_probe.probe(
+                  device="cuda", n1=1, n2=3)),
+              ("profile_sd", lambda: profile_sd.profile(
+                  device="cuda", n1=1, n2=3, unet_reps=1)),
+              ("profile_sd_ablate", lambda: profile_sd_ablate.ablate(
+                  device="cuda", reps=1)),
+              ("profile_ln_fuse", lambda: profile_ln_fuse.probe(
+                  device="cuda", n1=1, n2=3, unet_reps=1)),
+              ("profile_prefix_decode", lambda: profile_prefix_decode.probe(
+                  device="cuda", n_lo=2, n_hi=6))]
+    zero_launches()
+    for name, run in probes:
+        t0 = time.perf_counter()
+        log(f"probe {name}:")
+        out = run()
+        rep[f"{name}_s"] = time.perf_counter() - t0
+        bad = [r for r in out if "failed" in r]
+        if not out or bad:
+            failures.append(f"probe {name}: {len(out)} rows, failed: {bad}")
+        nums = [v for r in out for v in r.values()
+                if isinstance(v, float)]
+        if not all(math.isfinite(v) for v in nums):
+            failures.append(f"probe {name} printed a value that is not "
+                            f"finite")
+        if name == "attn_sweep":
+            # every variant computes the first row's attention (K2): each
+            # is within two bf16 ulps of the exact output, so within four
+            # of K2's
+            top = max((r["maxerr"] / (4 * 2.0 ** -7 * r["ref_max"])
+                       for r in out if "maxerr" in r), default=0.0)
+            rep["attn_sweep_max_err_vs_k2_in_4_ulps"] = top
+            if top > 1.0:
+                failures.append(f"attn_sweep: a variant is {top} times four "
+                                f"bf16 ulps from K2's output")
+        torch.cuda.empty_cache()
+    rep["launches"] = launches = read_launches()
+    for name in ("mm_probe", "flash_variant", "flash_nomax"):
+        if launches[name] <= 0:
+            failures.append(f"{name} was not launched in phase E's probes")
+    return rows, rep, failures
+
+
 # one run of a tree's own main path, in a fresh process (argv[1]: its
-# root, argv[2]: this script, whose device_profile reads both trees), then
-# ten timed full-width UNet calls and one profiled one
+# root, argv[2]: this script, whose tree's scripts/_timing.py profiles both
+# trees), then ten timed full-width UNet calls and one profiled one
 _AB_CHILD = """
-import importlib.util, json, sys, time
+import importlib.util, json, os, sys, time
 sys.path.insert(0, sys.argv[1])
 import torch
 import chip_smoke as cs
 from gill_tpu_torch.models.sd import unet as unet_mod
 from gill_tpu_torch.ops import _build
-spec = importlib.util.spec_from_file_location("chip_smoke_ab", sys.argv[2])
+spec = importlib.util.spec_from_file_location("timing_ab", os.path.join(
+    os.path.dirname(sys.argv[2]), "gill_tpu_torch", "scripts", "_timing.py"))
 me = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(me)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -1329,7 +1425,7 @@ with torch.no_grad():
         step()
         torch.cuda.synchronize()
         unet_ms.append(1e3 * (time.perf_counter() - t0))
-    prof = me.device_profile(torch, step, top=6)
+    prof = me.device_profile(step, top=6)
     # the process's host speed alone: a small CPU tensor op and pure Python
     x = torch.zeros(16)
     t0 = time.perf_counter()
@@ -1419,12 +1515,23 @@ def main() -> int:
         d_report["wall_s"] = time.perf_counter() - t0
         failures += d_failures
         log("SD modes phase D:", json.dumps(d_report))
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        e_rows, e_report, e_failures = phase_e(torch, dev)
+        e_report["wall_s"] = time.perf_counter() - t0
+        rows += e_rows
+        failures += e_failures
+        log("probe phase E:", json.dumps(e_report))
     # launches on each kernel's own paths: slice 1's main path for flash
     # and GEGLU, serving phases A and B for the W8 and decode kernels, the
-    # fused-LN generation (D1) for K7-K9 and the q8 UNet call (D2) for K10
-    d_launches = {**d_report["gen512_fused_ln_launches"],
-                  "flash_attention_q8":
-                      d_report["unet_call_q8_launches"]["flash_attention_q8"]}
+    # fused-LN generation (D1) for K7-K9, the q8 UNet call (D2) for K10 and
+    # phase E's probes for S1-S3
+    path_launches = {**d_report["gen512_fused_ln_launches"],
+                     "flash_attention_q8": d_report["unet_call_q8_launches"][
+                         "flash_attention_q8"],
+                     **{name: e_report["launches"][name] for name in
+                        ("mm_probe", "flash_variant", "flash_nomax")}}
     for row in rows:
         name = row["name"]
         if name in ("flash_attention", "geglu_ff"):
@@ -1433,7 +1540,7 @@ def main() -> int:
             row["launches"] = (serve_report["A"]["launches"][name]
                                + serve_report["B"]["launches"][name])
         else:
-            row["launches"] = d_launches[name]
+            row["launches"] = path_launches[name]
     log(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s")
     if failures:
         for f in failures:

@@ -21,13 +21,23 @@ names = [m.name for m in pkgutil.walk_packages(gill_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "gill_tpu", "triton"))
+             if k.split(".")[0] in ("jax", "jaxlib", "gill_tpu", "triton",
+                                    "scripts"))
 print(len(names), bad)
 assert len(names) >= 20, names
 for needed in ("gill_tpu_torch.serve.engine", "gill_tpu_torch.serve.gill_engine",
                "gill_tpu_torch.ops.w8_matmul", "gill_tpu_torch.ops.decode_attn",
                "gill_tpu_torch.ops.quant", "gill_tpu_torch.ops.ln_matmul",
-               "gill_tpu_torch.serve.sd_queue"):
+               "gill_tpu_torch.serve.sd_queue", "gill_tpu_torch.ops.mm_probe",
+               "gill_tpu_torch.ops.flash_variants",
+               "gill_tpu_torch.scripts._timing",
+               "gill_tpu_torch.scripts.attn_mxu_probe",
+               "gill_tpu_torch.scripts.attn_sweep",
+               "gill_tpu_torch.scripts.int8_probe",
+               "gill_tpu_torch.scripts.profile_sd",
+               "gill_tpu_torch.scripts.profile_sd_ablate",
+               "gill_tpu_torch.scripts.profile_ln_fuse",
+               "gill_tpu_torch.scripts.profile_prefix_decode"):
     assert needed in names, needed
 assert not bad, bad
 """

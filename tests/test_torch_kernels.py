@@ -20,7 +20,10 @@ bf16 ulps of the largest output, as GEGLU (the plain version rounds its
 LayerNorm and product sums to bf16 at other points, and its row statistics
 sum in another order); the int8-QK attention two bf16 ulps (both quantize
 identically, so the int8 values and int32 scores are equal and only the
-softmax's summation order differs).
+softmax's summation order differs). The probe kernels: the repeated-product
+probe (S1) int8 exactly equal and bf16 within 1e-5 of the largest output,
+relative (fp32 sums in another order); the sweep's flash variants (S2, S3)
+two bf16 ulps of the largest output, as flash attention.
 """
 
 import pytest
@@ -28,8 +31,10 @@ import torch
 
 from gill_tpu_torch.ops import attention as attn
 from gill_tpu_torch.ops import decode_attn
+from gill_tpu_torch.ops import flash_variants as fv
 from gill_tpu_torch.ops import geglu
 from gill_tpu_torch.ops import ln_matmul as lnm
+from gill_tpu_torch.ops import mm_probe as mp
 from gill_tpu_torch.ops import w8_matmul as w8
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -383,3 +388,112 @@ def test_int_mm_pads_to_what_cublas_takes(cuda, m, k, n):
         got = quant.int_mm(a, bb)
         assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
         assert torch.equal(got.cpu().long(), want)
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (512, 128, 2048, "bfloat16"), (512, 128, 2048, "int8"),
+    (512, 4096, 128, "bfloat16"), (512, 4096, 128, "int8"),
+    (40, 4096, 512, "bfloat16"), (48, 4096, 512, "bfloat16"),
+    (128, 4096, 512, "bfloat16"), (37, 100, 70, "bfloat16"),
+    (37, 100, 70, "int8")])
+def test_mm_probe_kernel_matches_plain(cuda, m, k, n, dtype):
+    """S1 at the seven probe cases (normal * 3 operands, as the probe makes
+    them) and a ragged case: M, K and N off every tile edge."""
+    g = torch.Generator(cuda).manual_seed(m + k + n)
+    dt = getattr(torch, dtype)
+    a = (3 * torch.randn(m, k, device=cuda, generator=g)).to(dt)
+    b = (3 * torch.randn(k, n, device=cuda, generator=g)).to(dt)
+    before = mp.mm_probe.launches
+    got = mp.mm_probe(a, b)
+    torch.cuda.synchronize()
+    assert mp.mm_probe.launches == before + 1
+    want = mp.mm_probe_ref(a, b)
+    if dt == torch.int8:
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    else:
+        assert got.dtype == torch.float32
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+
+
+def test_mm_probe_kernel_refuses_what_it_does_not_take(cuda):
+    a = torch.zeros(4, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        mp.mm_probe(a.float(), a.float().t())
+    with pytest.raises(ValueError):
+        mp.mm_probe(a, a)
+
+
+@pytest.mark.parametrize("b,t,s,h,d", [
+    (8, 4096, 4096, 8, 40), (1, 192, 320, 2, 40), (2, 128, 256, 3, 48),
+    (1, 64, 64, 1, 16)])
+@pytest.mark.parametrize("block_q,online,probs,kt", [
+    (256, False, "float32", False), (512, False, "float32", False),
+    (1024, False, "float32", False), (512, True, "float32", False),
+    (256, False, "bfloat16", False), (512, True, "bfloat16", False),
+    (512, False, "float32", True), (512, True, "float32", True)])
+def test_flash_variant_kernel_matches_plain(cuda, b, t, s, h, d, block_q,
+                                            online, probs, kt):
+    """S2 at the sweep's shape and at small ones (T off the 128-row tile,
+    D 48 and 16, B = 1 so k's transpose must be copied): each Hopper tile,
+    single-pass and online, fp32 and bf16 probabilities, k transposed."""
+    g = torch.Generator(cuda).manual_seed(b + t + s + d)
+    q, k, v = (torch.randn(b, n, h, d, device=cuda, generator=g)
+               .to(torch.bfloat16) for n in (t, s, s))
+    bq = block_q if t % block_q == 0 else 64
+    bk = min(1024, s // 2) if online else s
+    before = fv.flash_variant.launches
+    got = fv.flash_variant(q, k, v, block_q=bq, block_k=bk,
+                           prob_dtype=getattr(torch, probs), kt=kt)
+    torch.cuda.synchronize()
+    assert fv.flash_variant.launches == before + 1
+    want = fv.flash_variant_ref(q, k, v, block_k=bk,
+                                bf16_probs=probs == "bfloat16")
+    assert _ulps(got, want, 2)
+
+
+@pytest.mark.parametrize("b,t,s,h,d,block_q", [
+    (8, 4096, 4096, 8, 40, 512), (8, 4096, 4096, 8, 40, 1024),
+    (1, 192, 320, 2, 40, 64), (2, 128, 256, 3, 48, 128)])
+def test_flash_nomax_kernel_matches_plain(cuda, b, t, s, h, d, block_q):
+    g = torch.Generator(cuda).manual_seed(b + t + s + d)
+    q, k, v = (torch.randn(b, n, h, d, device=cuda, generator=g)
+               .to(torch.bfloat16) for n in (t, s, s))
+    before = fv.flash_nomax.launches
+    got = fv.flash_nomax(q, k, v, block_q=block_q, block_k=s)
+    torch.cuda.synchronize()
+    assert fv.flash_nomax.launches == before + 1
+    assert _ulps(got, fv.flash_nomax_ref(q, k, v), 2)
+
+
+def test_flash_nomax_kernel_keeps_the_overflow(cuda):
+    """No clamp: a query row scaled by 100 overflows exp(s - 12) in the
+    kernel as in its plain version; the other rows agree."""
+    g = torch.Generator(cuda).manual_seed(5)
+    q, k, v = (torch.randn(1, 128, 2, 40, device=cuda, generator=g)
+               for _ in range(3))
+    q[:, 0] *= 100
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    got = fv.flash_nomax(q, k, v, block_q=64, block_k=128)
+    want = fv.flash_nomax_ref(q, k, v)
+    assert not torch.isfinite(got[:, 0]).any()
+    assert not torch.isfinite(want[:, 0]).any()
+    assert _ulps(got[:, 1:], want[:, 1:], 2)
+
+
+def test_flash_variant_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 128, 2, 40, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):        # a tail the TPU grid would drop
+        fv.flash_variant(q, q, q, block_q=64, block_k=96)
+    with pytest.raises(TypeError):
+        fv.flash_variant(q.float(), q.float(), q.float(), block_q=64,
+                         block_k=128)
+    for d in (44, 64):     # D a multiple of 8, at most 48
+        wide = torch.zeros(1, 128, 2, d, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            fv.flash_nomax(wide, wide, wide, block_q=64, block_k=128)
+    # 16-byte loads: a base 2 bytes off alignment is refused, not read
+    off = torch.zeros(128 * 2 * 40 + 1, device=cuda, dtype=torch.bfloat16)
+    off = off[1:].view(1, 128, 2, 40)
+    with pytest.raises(ValueError):
+        fv.flash_variant(off, q, q, block_q=64, block_k=128)
