@@ -11,9 +11,12 @@
    shape its paths give it: max abs error against a stated tolerance, the
    CUDA-event time of both (the device is kept busy while the host queues
    the launches, so host overhead is not timed), the least time the card
-   could take (bytes over 3.35 TB/s or operations over the peak rate of
-   their type, whichever is larger) and, where one PyTorch call computes
-   the same function, that call's time.
+   could take (the largest of bytes over 3.35 TB/s, operations over the
+   peak rate of their type and, for attention, exponentials over the
+   special-function units' ~3.9e12/s) and, where one PyTorch call computes
+   the same function, that call's time. The UNet's bf16 attention at head
+   dims 40 / 80 (K2) is also timed at every tile of csrc/flash_mma.cu, its
+   int8-QK twin (K10) pre-pass and main kernel apart.
 4. Main path (slice 1) at full width: `load_gill` on a model_args.json for
    OPT-6.7B + CLIP ViT-L/14 + SD v1.5 (512 x 512, 50-step PNDM, CFG 7.5) with
    random weights made on the device from a seeded torch.Generator, a random
@@ -103,17 +106,19 @@ from gill_tpu_torch.scripts._timing import (bound, cuda_ms,  # noqa: E402
                                             device_profile, smi_line)
 
 FLASH_SRC = "gill_tpu_torch/csrc/flash_attn.cu"
+MMA_SRC = "gill_tpu_torch/csrc/flash_mma.cu"
 GEGLU_SRC = "gill_tpu_torch/csrc/geglu.cu"
 W8_SRC = "gill_tpu_torch/csrc/w8_matmul.cu"
 DECODE_SRC = "gill_tpu_torch/csrc/decode_attn.cu"
-FLASH_REPLACES = ("gill_tpu/ops/attention.py:271 flash_attention + "
-                  "gill_tpu/ops/attention.py:392 flash_attention_bthd")
+FLASH_REPLACES = ("gill_tpu/ops/attention.py:271 flash_attention "
+                  "(_flash_kernel :154, pallas_call :330)")
+MMA_REPLACES = ("gill_tpu/ops/attention.py:392 flash_attention_bthd "
+                "(_flash_kernel :154, pallas_call :446)")
 GEGLU_REPLACES = "gill_tpu/ops/geglu.py:110 geglu_ff"
 W8_REPLACES = ("gill_tpu/ops/w8_matmul.py:125 w8_matmul + "
                "gill_tpu/ops/w8_matmul.py:52 w8_matmul_stacked")
 DECODE_REPLACES = "gill_tpu/ops/decode_attn.py:140 prefix_decode_attention"
 LN_SRC = "gill_tpu_torch/csrc/ln_matmul.cu"
-I8_SRC = "gill_tpu_torch/csrc/flash_attn_i8.cu"
 LN_REPLACES = "gill_tpu/ops/ln_matmul.py:127 ln_matmul (_kernel)"
 LN3_REPLACES = "gill_tpu/ops/ln_matmul.py:80 ln_matmul_stacked (_kernel_stacked)"
 GEGLU_LN_REPLACES = "gill_tpu/ops/geglu.py:168 geglu_ff(ln_gamma=...) (_kernel_ln)"
@@ -245,7 +250,9 @@ def recorder(rows, failures):
 def kernel_phase(torch, dev):
     import torch.nn.functional as F
 
-    from gill_tpu_torch.ops.attention import flash_attention, flash_attention_ref
+    from gill_tpu_torch.ops.attention import (MMA_TILES, flash_attention,
+                                              flash_attention_ref,
+                                              mma_eligible, mma_tile)
     from gill_tpu_torch.ops.decode_attn import (prefix_decode_attention,
                                                 prefix_decode_attention_ref)
     from gill_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ref
@@ -266,12 +273,17 @@ def kernel_phase(torch, dev):
         tol = flash_tol(torch, dtype, ref.float())
         reps = 20 if t * s < 4096 * 4096 else 8
         esize = q.element_size()
+        pairs = b * h * _flash_pairs(t, s, causal)
         bms, by = bound((2 * b * t * h * d + 2 * b * s * h * d) * esize,
-                        4.0 * b * h * d * _flash_pairs(t, s, causal),
-                        "fp32" if dtype == torch.float32 else "bf16")
+                        4.0 * d * pairs,
+                        "fp32" if dtype == torch.float32 else "bf16",
+                        exps=pairs)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        row = {"name": "flash_attention", "site": site, "route": "cuda",
-               "source": FLASH_SRC, "replaces": FLASH_REPLACES,
+        mma = mma_eligible(dtype, d)
+        row = {"name": "flash_mma" if mma else "flash_attention",
+               "site": site, "route": "cuda",
+               "source": MMA_SRC if mma else FLASH_SRC,
+               "replaces": MMA_REPLACES if mma else FLASH_REPLACES,
                "shape": f"q({b},{t},{h},{d}) kv({b},{s},{h},{d}) {dt}"
                         f"{' causal' if causal else ''}",
                "ms": cuda_ms(lambda: flash_attention(
@@ -283,6 +295,13 @@ def kernel_phase(torch, dev):
                # at every shape, so SDPA's top-left causal alignment agrees)
                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=causal), reps)}
+        if mma:
+            # the tile the shape picks, and every tile the kernel takes
+            row["tile"] = "x".join(map(str, mma_tile(t)))
+            row["ms_by_tile"] = {
+                f"{bq}x{bk}": cuda_ms(lambda: flash_attention(
+                    q, k, v, causal=causal, block_q=bq, block_k=bk), reps)
+                for bq in MMA_TILES for bk in MMA_TILES}
         record(row, err, tol)
         del q, k, v, qt, kt, vt, out, ref
     for site, m, d in GEGLU_SHAPES:
@@ -396,7 +415,8 @@ def kernel_phase_sd_modes(torch, dev, g, record):
     import torch.nn.functional as F
 
     from gill_tpu_torch.ops.attention import (flash_attention_q8,
-                                              flash_attention_q8_ref)
+                                              flash_attention_q8_ref,
+                                              mma_tile, quantize_qk)
     from gill_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ref
     from gill_tpu_torch.ops.ln_matmul import (ln_matmul, ln_matmul_ref,
                                               ln_matmul_stacked,
@@ -466,17 +486,25 @@ def kernel_phase_sd_modes(torch, dev, g, record):
         want = flash_attention_q8_ref(q, k, v, scale=sc)
         torch.cuda.synchronize()
         err = float((out.float() - want.float()).abs().max())
-        # QK on the int8 tensor cores, PV on the bf16 ones
+        # QK on the int8 tensor cores, PV on the bf16 ones, an exponential
+        # a (query, key) pair
         bms, by = bound((2 * b * t * h * d + 2 * b * s * h * d) * 2,
                         2.0 * b * h * t * s * d, "int8",
-                        more=[(2.0 * b * h * t * s * d, "bf16")])
+                        more=[(2.0 * b * h * t * s * d, "bf16")],
+                        exps=b * h * t * s)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         reps = 8 if t * s >= 4096 * 4096 else 20
-        row = {"name": "flash_attention_q8", "site": site, "route": "cuda",
-               "source": I8_SRC, "replaces": I8_REPLACES,
+        qk8 = quantize_qk(q, k)
+        row = {"name": "flash_mma_q8", "site": site, "route": "cuda",
+               "source": MMA_SRC, "replaces": I8_REPLACES,
                "shape": f"q({b},{t},{h},{d}) kv({b},{s},{h},{d}) bfloat16",
+               "tile": "x".join(map(str, mma_tile(t))),
                "ms": cuda_ms(lambda: flash_attention_q8(
                    q, k, v, scale=sc), reps),
+               # the pre-pass (quantize_qk) and the main kernel apart
+               "prepass_ms": cuda_ms(lambda: quantize_qk(q, k), reps),
+               "main_ms": cuda_ms(lambda: flash_attention_q8(
+                   q, k, v, scale=sc, qk8=qk8), reps),
                "plain_ms": cuda_ms(lambda: flash_attention_q8_ref(
                    q, k, v, scale=sc), reps),
                "bound_ms": bms, "bound_by": by,
@@ -488,7 +516,7 @@ def kernel_phase_sd_modes(torch, dev, g, record):
         # both quantize identically: equal int8 values and int32 scores,
         # only the softmax's summation order differs -> two bf16 ulps
         record(row, err, 2.0 * 2.0 ** -7 * float(want.float().abs().max()))
-        del q, k, v, qt, kt, vt, out, want
+        del q, k, v, qt, kt, vt, out, want, qk8
 
 
 # ---------------------------------------------------------------------------
@@ -507,7 +535,7 @@ def plain_kernels():
     from gill_tpu_torch.ops.geglu import geglu_ff_ref
 
     def flash_plain(q, k, v, *, causal=False, scale=None, kv_len=None,
-                    fast=False):
+                    fast=False, block_q=0, block_k=0):
         return attn_mod.flash_attention_ref(q, k, v, causal=causal,
                                             scale=scale, kv_len=kv_len)
 
@@ -531,11 +559,13 @@ def plain_kernels():
 
 def _counters():
     """{kernel name: (wrapper, attribute holding its launch count)}; the
-    LN-folded GEGLU counts on the GEGLU wrapper's own `ln_launches`."""
+    LN-folded GEGLU counts on the GEGLU wrapper's own `ln_launches`, and
+    csrc/flash_mma.cu (K2 and K10) on flash_attention's `mma_launches`."""
     from gill_tpu_torch.ops import (attention, decode_attn, flash_variants,
                                     geglu, ln_matmul, mm_probe, w8_matmul)
 
     return {"flash_attention": (attention.flash_attention, "launches"),
+            "flash_mma": (attention.flash_attention, "mma_launches"),
             "geglu_ff": (geglu.geglu_ff, "launches"),
             "w8_matmul": (w8_matmul.w8_matmul, "launches"),
             "prefix_decode_attention": (decode_attn.prefix_decode_attention,
@@ -543,7 +573,7 @@ def _counters():
             "ln_matmul": (ln_matmul.ln_matmul, "launches"),
             "ln_matmul_stacked": (ln_matmul.ln_matmul_stacked, "launches"),
             "geglu_ff_ln": (geglu.geglu_ff, "ln_launches"),
-            "flash_attention_q8": (attention.flash_attention_q8, "launches"),
+            "flash_mma_q8": (attention.flash_attention_q8, "launches"),
             "mm_probe": (mm_probe.mm_probe, "launches"),
             "flash_variant": (flash_variants.flash_variant, "launches"),
             "flash_nomax": (flash_variants.flash_nomax, "launches")}
@@ -702,7 +732,7 @@ def main_path(torch, dev):
                          {k: (v if k == "decision" else len(v))
                           for k, v in o.items()} for o in out_b])
     log("main-path launches:", launches)
-    for name in ("flash_attention", "geglu_ff"):
+    for name in ("flash_attention", "flash_mma", "geglu_ff"):
         if launches[name] <= 0:
             failures.append(f"{name} was not launched on the main path")
 
@@ -1148,7 +1178,7 @@ def phase_d(torch, dev, model, prompt_b):
     zero_launches()
     q8, rep["unet_call_q8_s"] = timed(torch, lambda: call(q8=True))
     rep["unet_call_q8_launches"] = launches_d2 = read_launches()
-    need(launches_d2, ("flash_attention_q8",), "D2's UNet call")
+    need(launches_d2, ("flash_mma", "flash_mma_q8"), "D2's UNet call")
     with plain_kernels():
         q8_plain = call(q8=True)
     torch.cuda.synchronize()
@@ -1298,7 +1328,7 @@ def probe_kernel_rows(torch, dev, record):
     q, k, v = attn_sweep.inputs(attn_sweep.SHAPE, dev)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     bms, by = bound(4 * b_ * s_ * h_ * d_ * 2, 4.0 * b_ * h_ * s_ * s_ * d_,
-                    "bf16")
+                    "bf16", exps=b_ * h_ * s_ * s_)
     sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 5)
     for spec in attn_sweep.VARIANTS:
         name, _, _, probs, k_t, nomax = spec
@@ -1528,13 +1558,13 @@ def main() -> int:
     # fused-LN generation (D1) for K7-K9, the q8 UNet call (D2) for K10 and
     # phase E's probes for S1-S3
     path_launches = {**d_report["gen512_fused_ln_launches"],
-                     "flash_attention_q8": d_report["unet_call_q8_launches"][
-                         "flash_attention_q8"],
+                     "flash_mma_q8": d_report["unet_call_q8_launches"][
+                         "flash_mma_q8"],
                      **{name: e_report["launches"][name] for name in
                         ("mm_probe", "flash_variant", "flash_nomax")}}
     for row in rows:
         name = row["name"]
-        if name in ("flash_attention", "geglu_ff"):
+        if name in ("flash_attention", "flash_mma", "geglu_ff"):
             row["launches"] = launches[name]
         elif name in ("w8_matmul", "prefix_decode_attention"):
             row["launches"] = (serve_report["A"]["launches"][name]

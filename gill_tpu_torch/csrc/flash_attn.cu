@@ -1,27 +1,30 @@
-// Flash attention forward for Hopper (sm_90a), fp32 and bf16.
+// Flash attention forward for Hopper (sm_90a), fp32 at every head dim and
+// bf16 at head dims above 80.
 //
-// Replaces gill_tpu/ops/attention.py `flash_attention` and
-// `flash_attention_bthd` (Pallas body `_flash_kernel`): out =
-// softmax(scale * q k^T) v with an online softmax whose statistics stay in
-// fp32, causal masking aligned bottom-right (key j visible to query i when
-// j <= i + S - T), and keys at or beyond `kv_len` masked. The Pallas
-// `fast` clamp-shift softmax is computed exactly here.
+// Replaces gill_tpu/ops/attention.py `flash_attention` (Pallas body
+// `_flash_kernel`, K1): out = softmax(scale * q k^T) v with an online
+// softmax whose statistics stay in fp32, causal masking aligned
+// bottom-right (key j visible to query i when j <= i + S - T), and keys at
+// or beyond `kv_len` masked. The Pallas `fast` clamp-shift softmax is
+// computed exactly here. bf16 calls at head dims <= 80 (the UNet's K2 and
+// its int8-QK twin K10) take csrc/flash_mma.cu instead; this library
+// refuses them.
 //
 // Layout: q (B, T, H, D), k/v (B, S, H, D), each with its own batch, row
 // and head strides and a unit last stride, read at the TRUE head dim (no
 // 128-lane padding, no transposes); out is a contiguous (B, T, H, D). The
 // head dim is zero-filled in shared memory up to DP, a multiple of 16 from
-// {48, 64, 80, 128, 160, 256, 512} (D = 40 -> 48), so every shape of the
-// path compiles to a fixed tile.
+// {48, 64, 80, 128, 160, 256, 512} (48-80 fp32 only), so every shape of
+// the path compiles to a fixed tile.
 //
-// What bounds it on an H100: at the main path's shapes (UNet S = 4096,
-// VAE D = 512) the work is O(T*S*D) FLOPs against O((T+S)*D) bytes, so it
-// is compute-bound: the products belong on the tensor cores, and the
-// online softmax (exp and two warp reductions per row and key tile) on the
-// CUDA cores is what remains. Two kernels:
-//  * bf16 (UNet, VAE): `flash_fwd_tc`, both products on the tensor cores
-//    (WMMA 16x16x16, fp32 accumulation), the probabilities rounded to bf16
-//    before the PV product as the Pallas kernel feeds its MXU;
+// What bounds it on an H100: at the main path's shapes (VAE D = 512, UNet
+// D = 160, CLIP and the OPT prefill) the work is O(T*S*D) FLOPs against
+// O((T+S)*D) bytes, so it is compute-bound: the products belong on the
+// tensor cores, and the online softmax (exp and two warp reductions per row
+// and key tile) on the CUDA cores is what remains. Two kernels:
+//  * bf16 (UNet D 160, VAE): `flash_fwd_tc`, both products on the tensor
+//    cores (WMMA 16x16x16, fp32 accumulation), the probabilities rounded to
+//    bf16 before the PV product as the Pallas kernel feeds its MXU;
 //  * fp32 (CLIP and the OPT prefill, where TF32 would break greedy-token
 //    parity): `flash_fwd`, fp32 FMA on the CUDA cores, exact. One block =
 //    BQ query rows of one (b, h), 4 warps; the (BQ, DP) fp32 output
@@ -29,7 +32,8 @@
 //    thread): BQ shrinks to 32 at DP 160/256 and to 16 at DP 512, which is
 //    also what keeps Q + K + V + scores under the 227 KB of shared memory.
 // In both, key tiles above the causal diagonal of the block are never
-// loaded. TMA/cp.async pipelining and wgmma are later work.
+// loaded. TMA/cp.async pipelining and wgmma are later work (csrc/
+// flash_mma.cu has the register-resident mma.sync design for D <= 80).
 
 #include <mma.h>
 
@@ -223,8 +227,8 @@ __global__ void __launch_bounds__(NT) flash_fwd(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 path: both products on the tensor cores (WMMA 16x16x16, fp32
-// accumulation). One block = BQ query rows of one (b, h), one warp per 16
+// bf16 path, DP 128-512: both products on the tensor cores (WMMA 16x16x16,
+// fp32 accumulation). One block = BQ query rows of one (b, h), one warp per 16
 // rows; each warp owns its rows' scores, probabilities and output, so the
 // only block-wide barriers are around the shared K/V tile loads. The
 // (BQ, DP) fp32 output lives in shared memory: a warp rescales its rows by
@@ -436,26 +440,31 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool BF16, int DP>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  return BF16 ? launch_bf16<DP>(p, stream) : launch_f32<DP>(p, stream);
+cudaError_t dispatch_f32(const Params& p, cudaStream_t stream) {
+  if (p.D <= 48) return launch_f32<48>(p, stream);
+  if (p.D <= 64) return launch_f32<64>(p, stream);
+  if (p.D <= 80) return launch_f32<80>(p, stream);
+  if (p.D <= 128) return launch_f32<128>(p, stream);
+  if (p.D <= 160) return launch_f32<160>(p, stream);
+  if (p.D <= 256) return launch_f32<256>(p, stream);
+  if (p.D <= 512) return launch_f32<512>(p, stream);
+  return cudaErrorInvalidValue;
 }
 
-template <bool BF16>
-cudaError_t dispatch(const Params& p, cudaStream_t stream) {
-  if (p.D <= 48) return launch<BF16, 48>(p, stream);
-  if (p.D <= 64) return launch<BF16, 64>(p, stream);
-  if (p.D <= 80) return launch<BF16, 80>(p, stream);
-  if (p.D <= 128) return launch<BF16, 128>(p, stream);
-  if (p.D <= 160) return launch<BF16, 160>(p, stream);
-  if (p.D <= 256) return launch<BF16, 256>(p, stream);
-  if (p.D <= 512) return launch<BF16, 512>(p, stream);
+// bf16 at D <= 80 is csrc/flash_mma.cu's
+cudaError_t dispatch_bf16(const Params& p, cudaStream_t stream) {
+  if (p.D <= 80) return cudaErrorInvalidValue;
+  if (p.D <= 128) return launch_bf16<128>(p, stream);
+  if (p.D <= 160) return launch_bf16<160>(p, stream);
+  if (p.D <= 256) return launch_bf16<256>(p, stream);
+  if (p.D <= 512) return launch_bf16<512>(p, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32 (D <= 512), 1 = bfloat16 (80 < D <= 512). Returns a
+// cudaError_t (0 = launched).
 extern "C" int gill_flash_attn(int dtype, const void* q, const void* k,
                                const void* v, void* o, int B, int T, int S,
                                int H, int D, long long q_sb, long long q_st,
@@ -473,8 +482,8 @@ extern "C" int gill_flash_attn(int dtype, const void* q, const void* k,
   Params p{q, k, v, o, B, T, S, H, D, kv_len, causal, (int)vec,
            q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = dtype == 0 ? dispatch<false>(p, st)
-                  : dtype == 1 ? dispatch<true>(p, st)
+  cudaError_t e = dtype == 0 ? dispatch_f32(p, st)
+                  : dtype == 1 ? dispatch_bf16(p, st)
                                : cudaErrorInvalidValue;
   return (int)e;
 }

@@ -22,7 +22,7 @@ from typing import Dict, List, Tuple
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("flash_attn", "geglu", "w8_matmul", "decode_attn", "ln_matmul",
-           "flash_attn_i8", "mm_probe", "flash_variants")
+           "flash_mma", "mm_probe", "flash_variants")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -27,6 +27,10 @@ import torch
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
+# exponentials a second on the special-function units (FlashAttention-3,
+# Shah et al. 2024: 3.9 TFLOPS of special functions on the H100 SXM5;
+# 16 a clock on each of 132 SMs at 1.83 GHz)
+EXP_S = 3.9e12
 
 
 def smi_line() -> str:
@@ -37,13 +41,18 @@ def smi_line() -> str:
         check=True).stdout.strip()
 
 
-def bound(nbytes: float, flops: float, kind: str, more=()):
-    """(ms, "bytes" | "operations"): the least time the card could take;
-    `more` adds (operations, kind) pairs run at other peak rates."""
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = sum(f / PEAK_FLOPS[k] for f, k in ((flops, kind), *more))
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+def bound(nbytes: float, flops: float, kind: str, more=(), exps: float = 0):
+    """(ms, "bytes" | "operations" | "exp"): the least time the card could
+    take, the largest of the bytes over the memory rate, the operations
+    over their peak rate (`more` adds (operations, kind) pairs run at other
+    peak rates) and `exps` exponentials over the special-function rate.
+    A max, not a sum: the three units run concurrently."""
+    terms = {"bytes": nbytes / HBM_BYTES_S,
+             "operations": sum(f / PEAK_FLOPS[k]
+                               for f, k in ((flops, kind), *more)),
+             "exp": exps / EXP_S}
+    by = max(terms, key=terms.get)
+    return 1e3 * terms[by], by
 
 
 def cuda_ms(fn, reps: int) -> float:

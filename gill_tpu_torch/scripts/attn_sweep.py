@@ -18,7 +18,7 @@ import sys
 
 import torch
 
-from gill_tpu_torch.ops.attention import flash_attention
+from gill_tpu_torch.ops.attention import flash_attention, mma_tile
 from gill_tpu_torch.ops.flash_variants import (flash_nomax, flash_variant,
                                                hopper_tile)
 from gill_tpu_torch.scripts._timing import clock_note, delta_ms, probe_main
@@ -65,7 +65,8 @@ def sweep(shape=SHAPE, device="cuda", n1=2, n2=12):
     print(clock_note(device), flush=True)
     q, k, v = inputs(shape, device)
     s = shape[1]
-    runs = [("current(auto 256xS)", "K2 64x64",
+    tile = mma_tile(s)
+    runs = [("current(auto 256xS)", "K2 " + "x".join(map(str, tile)),
              lambda q, k, v: flash_attention(q, k, v, causal=False))]
     for spec in VARIANTS:
         fn, bq, _ = build(spec, s)

@@ -82,6 +82,95 @@ def test_flash_ref_matches_pallas_bthd_interpret(d, s):
                                atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("block_q,block_k", [(0, 0), (64, 64), (64, 128),
+                                             (128, 64), (128, 128)])
+@pytest.mark.parametrize("d,t,s", [(40, 96, 200), (80, 130, 77)])
+def test_flash_blocks_match_pallas_bthd_interpret(d, t, s, block_q, block_k):
+    """bf16 at the UNet's head dims with the kernel's block_q / block_k
+    (the plain version ignores the tile on the CPU) against gill_tpu's
+    flash_attention_bthd with the same blocks (its own tiles: online
+    softmax over key blocks, ragged query and key edges), in interpret
+    mode; 0 = each side's automatic choice. Tolerance as for bf16 above:
+    2^-7 relative + 4e-3 absolute, one bf16 ulp of outputs ~1 (the Pallas
+    kernel rounds p to bf16 against the running max of its key blocks,
+    the plain version against the row's final max)."""
+    q, k, v = _qkv(d + t + s, 2, t, s, 2, d)
+    pad = [(0, 0), (0, 0), (0, 0), (0, 128 - d)]
+    with pltpu.force_tpu_interpret_mode():
+        want = jattn.flash_attention_bthd(
+            *(jnp.pad(jnp.asarray(a, jnp.bfloat16), pad) for a in (q, k, v)),
+            causal=False, scale=1.0 / math.sqrt(d), block_q=block_q,
+            block_k=block_k)
+    got = tattn.flash_attention(*_torch(q, k, v, dtype=torch.bfloat16),
+                                block_q=block_q, block_k=block_k)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == q.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32))[..., :d],
+                               atol=4e-3, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("dtype,d,block_q,block_k", [
+    (torch.bfloat16, 40, 32, 0), (torch.bfloat16, 40, 0, 256),
+    (torch.bfloat16, 80, 96, 64), (torch.bfloat16, 80, -64, 64),
+    (torch.float32, 40, 64, 64), (torch.bfloat16, 128, 0, 64)])
+def test_flash_refuses_unsupported_blocks_on_cpu(dtype, d, block_q, block_k):
+    """The tile check runs before the CPU's plain version: a block the
+    kernel does not take, or any block for a call the bf16 d <= 80 kernel
+    does not take (fp32, d > 80), raises ValueError."""
+    q = torch.zeros(1, 16, 2, d, dtype=dtype)
+    with pytest.raises(ValueError):
+        tattn.flash_attention(q, q, q, block_q=block_q, block_k=block_k)
+
+
+def test_mma_tile_by_shape():
+    """The automatic tile: 128 query rows but for T <= 64, 64 keys; given
+    blocks are taken as they are."""
+    assert tattn.mma_tile(4096) == (128, 64)
+    assert tattn.mma_tile(1024) == (128, 64)
+    assert tattn.mma_tile(64) == (64, 64)
+    assert tattn.mma_tile(4096, block_q=64, block_k=128) == (64, 128)
+    assert tattn.mma_tile(100, block_k=128) == (128, 128)
+    assert tattn.mma_eligible(torch.bfloat16, 80)
+    assert not tattn.mma_eligible(torch.bfloat16, 88)
+    assert not tattn.mma_eligible(torch.float32, 40)
+
+
+@pytest.mark.parametrize("t,s,d,q_block", [(96, 77, 40, 50), (64, 33, 36, 64),
+                                           (130, 130, 80, 1024),
+                                           (40, 24, 128, 16)])
+def test_quantize_qk_ref_layout(t, s, d, q_block):
+    """K10's pre-pass layout on the CPU against numpy: q per (b, h, group
+    of q_block rows, the last one partial), k per (b, h), scale
+    max(amax / 127, 1e-12) in float32, values rint(x / scale) clipped to
+    +-127, rows (b * H + h) zero-padded to a multiple of 16 bytes."""
+    b, h = 2, 3
+    q, k, _ = _qkv(t + s + d, b, t, s, h, d)
+    qb = torch.from_numpy(q).bfloat16()
+    kb = torch.from_numpy(k).bfloat16()
+    got = tattn.quantize_qk(qb, kb, q_block=q_block)
+    rb = -(-d // 16) * 16
+
+    def quant(x):
+        amax = np.float32(np.abs(x).max())
+        sc = np.maximum(amax / np.float32(127.0), np.float32(1e-12))
+        return np.clip(np.rint(x / sc), -127, 127).astype(np.int8), sc
+
+    qf, kf = qb.float().numpy(), kb.float().numpy()
+    for bi in range(b):
+        for hi in range(h):
+            r = bi * h + hi
+            kq, sk = quant(kf[bi, :, hi])
+            assert np.array_equal(got.kq[r, :, :d].numpy(), kq)
+            assert got.sk[r].item() == sk
+            for gi, r0 in enumerate(range(0, t, q_block)):
+                qq, sq = quant(qf[bi, r0:r0 + q_block, hi])
+                assert np.array_equal(
+                    got.qq[r, r0:r0 + q_block, :d].numpy(), qq)
+                assert got.sq[r, gi].item() == sq
+    assert got.qq.shape == (b * h, t, rb) and got.kq.shape == (b * h, s, rb)
+    assert not got.qq[..., d:].any() and not got.kq[..., d:].any()
+
+
 def test_flash_ref_bf16_matches_pallas_interpret():
     q, k, v = _qkv(5, 1, 64, 77, 2, 64)
     with pltpu.force_tpu_interpret_mode():

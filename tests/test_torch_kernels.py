@@ -20,7 +20,9 @@ bf16 ulps of the largest output, as GEGLU (the plain version rounds its
 LayerNorm and product sums to bf16 at other points, and its row statistics
 sum in another order); the int8-QK attention two bf16 ulps (both quantize
 identically, so the int8 values and int32 scores are equal and only the
-softmax's summation order differs). The probe kernels: the repeated-product
+softmax's summation order differs), and its pre-pass exactly equal to the
+plain version on the CPU. The UNet's bf16 attention at head dims <= 80
+(csrc/flash_mma.cu) two bf16 ulps at every tile it takes. The probe kernels: the repeated-product
 probe (S1) int8 exactly equal and bf16 within 1e-5 of the largest output,
 relative (fp32 sums in another order); the sweep's flash variants (S2, S3)
 two bf16 ulps of the largest output, as flash attention.
@@ -54,14 +56,17 @@ def cuda():
     (128, 320, 320, True), (128, 100, 300, True), (160, 64, 77, False),
     (512, 96, 96, False)])
 def test_flash_kernel_matches_plain(cuda, d, t, s, causal, dtype):
+    """K1 (csrc/flash_attn.cu) and, for bf16 at d <= 80, K2
+    (csrc/flash_mma.cu), each counted on its own attribute."""
     dt = getattr(torch, dtype)
     g = torch.Generator(cuda).manual_seed(d + t)
     q, k, v = (torch.randn(2, n, 3, d, device=cuda, generator=g).to(dt)
                for n in (t, s, s))
-    before = attn.flash_attention.launches
+    counter = ("mma_launches" if attn.mma_eligible(dt, d) else "launches")
+    before = getattr(attn.flash_attention, counter)
     got = attn.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert attn.flash_attention.launches == before + 1
+    assert getattr(attn.flash_attention, counter) == before + 1
     want = attn.flash_attention_ref(q, k, v, causal=causal)
     tol = 1e-4 if dt == torch.float32 else 2 * 2.0 ** -7 * float(
         want.float().abs().max())
@@ -78,6 +83,107 @@ def test_flash_kernel_takes_strided_views(cuda):
     want = attn.flash_attention_ref(q.contiguous(), k.contiguous(),
                                      v.contiguous(), causal=True)
     assert float((got - want).abs().max()) <= 1e-4
+
+
+def _flash_close(got, want):
+    """Two bf16 ulps of the largest output (a NaN fails)."""
+    err = float((got.float() - want.float()).abs().max())
+    return err <= 2 * 2.0 ** -7 * float(want.float().abs().max())
+
+
+# K2's four UNet shapes at full size (CFG batch 2, 8 heads), then ragged
+# query counts, 77 keys, causal calls and a head dim the wrapper pads
+MMA_CASES = [(2, 4096, 4096, 8, 40, False), (2, 4096, 77, 8, 40, False),
+             (2, 1024, 1024, 8, 80, False), (2, 1024, 77, 8, 80, False),
+             (2, 200, 77, 3, 40, False), (2, 130, 130, 3, 80, False),
+             (1, 320, 320, 4, 80, True), (1, 100, 300, 4, 40, True),
+             (1, 70, 130, 2, 36, False)]
+
+
+@pytest.mark.parametrize("b,t,s,h,d,causal", MMA_CASES)
+def test_flash_mma_kernel_matches_plain(cuda, b, t, s, h, d, causal):
+    g = torch.Generator(cuda).manual_seed(t + s + d)
+    q, k, v = (torch.randn(b, n, h, d, device=cuda, generator=g).bfloat16()
+               for n in (t, s, s))
+    before = (attn.flash_attention.mma_launches, attn.flash_attention.launches)
+    got = attn.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (attn.flash_attention.mma_launches,
+            attn.flash_attention.launches) == (before[0] + 1, before[1])
+    assert got.is_contiguous() and got.shape == q.shape
+    assert _flash_close(got, attn.flash_attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("block_k", [0, 64, 128])
+@pytest.mark.parametrize("block_q", [0, 64, 128])
+@pytest.mark.parametrize("t,s,d", [(4096, 4096, 40), (1024, 77, 80),
+                                   (200, 130, 40)])
+def test_flash_mma_kernel_takes_every_tile(cuda, t, s, d, block_q, block_k):
+    g = torch.Generator(cuda).manual_seed(t + d)
+    b, h = (2, 8) if t >= 1024 else (1, 3)
+    q, k, v = (torch.randn(b, n, h, d, device=cuda, generator=g).bfloat16()
+               for n in (t, s, s))
+    got = attn.flash_attention(q, k, v, block_q=block_q, block_k=block_k)
+    assert _flash_close(got, attn.flash_attention_ref(q, k, v))
+
+
+def test_flash_mma_kernel_takes_fused_and_unaligned_views(cuda):
+    """Head-split views of one fused (B, T, 3, H, D) projection go in as
+    they are; a view whose base is not 16-byte aligned is copied first."""
+    g = torch.Generator(cuda).manual_seed(3)
+    qkv = torch.randn(2, 300, 3, 4, 40, device=cuda, generator=g).bfloat16()
+    q, k, v = qkv.unbind(2)
+    want = attn.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                    v.contiguous())
+    assert _flash_close(attn.flash_attention(q, k, v), want)
+    buf = torch.randn(70 * 2 * 40 + 1, device=cuda, generator=g).bfloat16()
+    x = buf[1:].view(1, 70, 2, 40)
+    assert x.data_ptr() % 16 != 0
+    assert _flash_close(attn.flash_attention(x, x, x),
+                        attn.flash_attention_ref(x, x, x))
+
+
+def test_flash_mma_kernel_refuses_unsupported_tiles(cuda):
+    """An unsupported block_q / block_k, or a tile asked of a call that
+    takes csrc/flash_attn.cu, raises before any launch."""
+    q = torch.zeros(1, 64, 2, 40, device=cuda, dtype=torch.bfloat16)
+    before = (attn.flash_attention.mma_launches, attn.flash_attention.launches)
+    for bq, bk in ((32, 0), (0, 256), (96, 64), (-64, 64)):
+        with pytest.raises(ValueError):
+            attn.flash_attention(q, q, q, block_q=bq, block_k=bk)
+    with pytest.raises(ValueError):
+        attn.flash_attention(q.float(), q.float(), q.float(), block_q=64)
+    big = torch.zeros(1, 64, 2, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        attn.flash_attention(big, big, big, block_k=64)
+    assert (attn.flash_attention.mma_launches,
+            attn.flash_attention.launches) == before
+
+
+def test_unet_call_launches_the_mma_kernel(cuda):
+    """A bf16 UNet at SD v1.5's widths (320 and 640 channels, 8 heads:
+    head dims 40 and 80), two levels: its 14 attention calls take K2, and
+    under q8=True K10, both on csrc/flash_mma.cu; none takes K1."""
+    from gill_tpu_torch import config as tcfg
+    from gill_tpu_torch.models.sd import unet
+    from gill_tpu_torch.nn.core import Init, tree_map
+
+    cfg = tcfg.UNetConfig(block_out_channels=(320, 640), layers_per_block=1,
+                          down_block_types=("CrossAttnDownBlock2D",) * 2,
+                          up_block_types=("CrossAttnUpBlock2D",) * 2)
+    g = torch.Generator(cuda).manual_seed(0)
+    params = tree_map(lambda x: x.bfloat16(), unet.init(Init(g, cuda), cfg))
+    lat = torch.randn(2, 16, 16, 4, device=cuda, generator=g).bfloat16()
+    ctx = torch.randn(2, 77, 768, device=cuda, generator=g).bfloat16()
+    t = torch.tensor(501.0, device=cuda)
+    fa, fq = attn.flash_attention, attn.flash_attention_q8
+    for q8 in (False, True):
+        before = (fa.mma_launches, fq.launches, fa.launches)
+        out = unet.apply(params, cfg, lat, t, ctx, q8=q8)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out.float()).all())
+        assert (fa.mma_launches - before[0], fq.launches - before[1],
+                fa.launches - before[2]) == (14, 14 if q8 else 0, 0)
 
 
 @pytest.mark.parametrize("d,m", [(320, 8192), (320, 77), (640, 2048),
@@ -336,11 +442,13 @@ def test_geglu_ln_kernel_matches_plain(cuda, m, d):
 
 @pytest.mark.parametrize("t,s,d,q_block", [
     (4096, 4096, 40, 1024), (4096, 77, 40, 1024), (1024, 1024, 80, 1024),
-    (1024, 77, 80, 1024), (200, 130, 64, 64), (96, 77, 40, 50)])
+    (1024, 77, 80, 1024), (200, 130, 64, 64), (96, 77, 40, 50),
+    (130, 100, 128, 64), (96, 77, 96, 50)])
 def test_flash_q8_kernel_matches_plain(cuda, t, s, d, q_block):
     """K10 at the UNet's q8 shapes (B 2, H 8), a ragged case with partial
-    query groups not aligned to the kernel's 64-row tiles, and q as a view
-    of a fused q/k/v projection."""
+    query groups not aligned to the kernel's query tiles, and q as a view
+    of a fused q/k/v projection. Counted on its own wrapper and, as a
+    launch of csrc/flash_mma.cu, on flash_attention.mma_launches."""
     g = torch.Generator(cuda).manual_seed(t + s + d)
     bf = torch.bfloat16
     b, h = (2, 8) if t >= 1024 else (1, 3)
@@ -348,14 +456,58 @@ def test_flash_q8_kernel_matches_plain(cuda, t, s, d, q_block):
     q = qkv[:, :, 0]
     k = (1.5 * torch.randn(b, s, h, d, device=cuda, generator=g)).to(bf)
     v = torch.randn(b, s, h, d, device=cuda, generator=g).to(bf)
-    before = attn.flash_attention_q8.launches
+    before = (attn.flash_attention_q8.launches,
+              attn.flash_attention.mma_launches)
     got = attn.flash_attention_q8(q, k, v, scale=d ** -0.5, q_block=q_block)
     torch.cuda.synchronize()
-    assert attn.flash_attention_q8.launches == before + 1
+    assert (attn.flash_attention_q8.launches,
+            attn.flash_attention.mma_launches) == (before[0] + 1,
+                                                   before[1] + 1)
     assert got.is_contiguous() and got.dtype == bf
     want = attn.flash_attention_q8_ref(q, k, v, scale=d ** -0.5,
                                        q_block=q_block)
     assert _ulps(got, want, 2)
+
+
+@pytest.mark.parametrize("b,t,s,h,d,q_block", [
+    (2, 4096, 4096, 8, 40, 1024), (2, 4096, 77, 8, 40, 1024),
+    (2, 1024, 1024, 8, 80, 1024), (2, 1024, 77, 8, 80, 1024),
+    (1, 96, 77, 3, 40, 50), (1, 70, 33, 2, 36, 64),
+    (1, 130, 100, 2, 128, 64)])
+def test_flash_q8_prepass_is_bit_equal_to_plain(cuda, b, t, s, h, d, q_block):
+    """K10's pre-pass against `quantize_qk_ref` on the CPU, exactly: the
+    int8 values, their zero padding and the scales. (On CUDA, PyTorch
+    divides by a Python scalar as a product with its reciprocal, so the
+    plain version's scales are compared where it divides truly.) Then the
+    main kernel on the pre-pass's result, as `qk8`, against the plain
+    attention. d 36 takes the pre-pass's element-wise loads."""
+    g = torch.Generator(cuda).manual_seed(t + s + d)
+    qkv = torch.randn(b, t, 3, h, d, device=cuda, generator=g).bfloat16()
+    q = qkv[:, :, 0]
+    k = (1.5 * torch.randn(b, s, h, d, device=cuda, generator=g)).bfloat16()
+    v = torch.randn(b, s, h, d, device=cuda, generator=g).bfloat16()
+    got = attn.quantize_qk(q, k, q_block=q_block)
+    want = attn.quantize_qk_ref(q.cpu(), k.cpu(), q_block=q_block)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x.cpu(), y)
+    out = attn.flash_attention_q8(q, k, v, scale=d ** -0.5, q_block=q_block,
+                                  qk8=got)
+    assert _flash_close(out, attn.flash_attention_q8_ref(
+        q, k, v, scale=d ** -0.5, q_block=q_block))
+
+
+def test_flash_q8_prepass_division_is_exact_for_every_bf16(cuda):
+    """The pre-pass divides by the scale with one reciprocal and two FMAs;
+    its int8 equals a true division's for every bf16 x with |x| <= amax
+    and every positive finite bf16 amax (the scale max(amax / 127,
+    1e-12)): 32,639 x up to 65,536 pairs, all of them."""
+    from gill_tpu_torch.ops._build import check
+
+    bad = torch.zeros(1, dtype=torch.int64, device=cuda)
+    check(attn._mma_lib().gill_flash_mma_q8_check_division(
+        bad.data_ptr(), torch.cuda.current_stream().cuda_stream),
+        "quant8_check")
+    assert int(bad) == 0
 
 
 def test_flash_q8_kernel_refuses_what_it_does_not_take(cuda):
