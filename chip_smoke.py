@@ -14,9 +14,11 @@
    could take (the largest of bytes over 3.35 TB/s, operations over the
    peak rate of their type and, for attention, exponentials over the
    special-function units' ~3.9e12/s) and, where one PyTorch call computes
-   the same function, that call's time. The UNet's bf16 attention at head
-   dims 40 / 80 (K2) is also timed at every tile of csrc/flash_mma.cu, its
-   int8-QK twin (K10) pre-pass and main kernel apart.
+   the same function, that call's time. Each attention and GEGLU row names
+   its launch plan (`flash_plan`, `geglu_plan`). The UNet's bf16 attention
+   at head dims 40 / 80 (K2) is also timed at every tile of
+   csrc/flash_mma.cu, its int8-QK twin (K10) pre-pass and main kernel
+   apart.
 4. Main path (slice 1) at full width: `load_gill` on a model_args.json for
    OPT-6.7B + CLIP ViT-L/14 + SD v1.5 (512 x 512, 50-step PNDM, CFG 7.5) with
    random weights made on the device from a seeded torch.Generator, a random
@@ -142,9 +144,11 @@ def log(*a):
 # (site, B, T, S, H, D, dtype, causal): every flash-attention call shape of
 # the main path (SD self/cross attention per UNet resolution, the VAE's
 # single 512-wide head, CLIP ViT-L/14, the OPT-6.7B prefill of request b)
+# and the bf16 prefill of the W8 serving engines' long prompts
 FLASH_SHAPES = [
     ("clip_vit_l14", 1, 257, 257, 16, 64, "float32", False),
     ("opt_prefill", 1, 320, 320, 32, 128, "float32", True),
+    ("opt_prefill_bf16", 1, 320, 320, 32, 128, "bfloat16", True),
     ("unet64_self", 2, 4096, 4096, 8, 40, "bfloat16", False),
     ("unet64_cross", 2, 4096, 77, 8, 40, "bfloat16", False),
     ("unet32_self", 2, 1024, 1024, 8, 80, "bfloat16", False),
@@ -252,10 +256,10 @@ def kernel_phase(torch, dev):
 
     from gill_tpu_torch.ops.attention import (MMA_TILES, flash_attention,
                                               flash_attention_ref,
-                                              mma_eligible, mma_tile)
+                                              flash_plan)
     from gill_tpu_torch.ops.decode_attn import (prefix_decode_attention,
                                                 prefix_decode_attention_ref)
-    from gill_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ref
+    from gill_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ref, geglu_plan
     from gill_tpu_torch.ops.w8_matmul import w8_matmul, w8_matmul_ref
 
     g = torch.Generator(dev).manual_seed(1234)
@@ -279,13 +283,15 @@ def kernel_phase(torch, dev):
                         "fp32" if dtype == torch.float32 else "bf16",
                         exps=pairs)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        mma = mma_eligible(dtype, d)
-        row = {"name": "flash_mma" if mma else "flash_attention",
+        plan = flash_plan(dtype, b, t, h, d)
+        k2 = plan.kernel == "K2"
+        row = {"name": "flash_mma" if k2 else "flash_attention",
                "site": site, "route": "cuda",
-               "source": MMA_SRC if mma else FLASH_SRC,
-               "replaces": MMA_REPLACES if mma else FLASH_REPLACES,
+               "source": MMA_SRC if plan.route == "mma" else FLASH_SRC,
+               "replaces": MMA_REPLACES if k2 else FLASH_REPLACES,
                "shape": f"q({b},{t},{h},{d}) kv({b},{s},{h},{d}) {dt}"
                         f"{' causal' if causal else ''}",
+               "plan": plan._asdict(),
                "ms": cuda_ms(lambda: flash_attention(
                    q, k, v, causal=causal), reps),
                "plain_ms": cuda_ms(lambda: flash_attention_ref(
@@ -295,9 +301,9 @@ def kernel_phase(torch, dev):
                # at every shape, so SDPA's top-left causal alignment agrees)
                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=causal), reps)}
-        if mma:
-            # the tile the shape picks, and every tile the kernel takes
-            row["tile"] = "x".join(map(str, mma_tile(t)))
+        row["tile"] = f"{plan.bq}x{plan.bk}"
+        if k2:
+            # every tile the kernel takes
             row["ms_by_tile"] = {
                 f"{bq}x{bk}": cuda_ms(lambda: flash_attention(
                     q, k, v, causal=causal, block_q=bq, block_k=bk), reps)
@@ -322,6 +328,7 @@ def kernel_phase(torch, dev):
         row = {"name": "geglu_ff", "site": site, "route": "cuda",
                "source": GEGLU_SRC, "replaces": GEGLU_REPLACES,
                "shape": f"x({m},{d}) bfloat16",
+               "plan": geglu_plan(m, d)._asdict(),
                "ms": cuda_ms(lambda: geglu_ff(x, w1, b1, w2, b2), 20),
                "plain_ms": cuda_ms(lambda: geglu_ff_ref(
                    x, w1, b1, w2, b2), 20),
@@ -812,16 +819,28 @@ def check_against_plain(torch, dev, model, req_a, out_a, prompt_b, report):
 
     # one full-width UNet call on the CFG batch (bf16 through 16 transformer
     # blocks: 3e-2 relative) and the VAE decode of its latents (3e-2)
+    # Each must launch its kernels: the UNet call K1 (head dim 160), K2
+    # and K3, the decode K1 (head dim 512).
     g = torch.Generator(dev).manual_seed(11)
     lat = torch.randn(2, 64, 64, 4, device=dev, generator=g).bfloat16()
     ctx = (0.5 * torch.randn(2, 77, 768, device=dev, generator=g)).bfloat16()
     t = torch.tensor(981.0, device=dev)
+    zero_launches()
     a, b = both(lambda: unet_mod.apply(pipe.params["unet"], pipe.cfg.unet,
                                        lat, t, ctx))
+    report["unet_step_launches"] = read_launches()
     checks["unet_step_rel_err"] = rel_err(torch, a, b)
+    zero_launches()
     a, b = both(lambda: vae_mod.decode(pipe.params["vae_decoder"],
                                        pipe.cfg.vae, lat[:1]))
+    report["vae_decode_launches"] = read_launches()
     checks["vae_decode_rel_err"] = rel_err(torch, a, b)
+    for key, names in (("unet_step_launches",
+                        ("flash_attention", "flash_mma", "geglu_ff")),
+                       ("vae_decode_launches", ("flash_attention",))):
+        for name in names:
+            if report[key][name] <= 0:
+                failures.append(f"{name} was not launched in the {key[:-9]}")
     report["checks_vs_plain"] = checks
     log("checks vs plain versions:", json.dumps(checks))
 

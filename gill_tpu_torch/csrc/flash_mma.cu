@@ -1,21 +1,25 @@
-// Flash attention forward on mma.sync for Hopper (sm_90a): the SD UNet's
-// bf16 attention at head dims <= 80 (K2) and its int8-QK twin (K10), one
-// kernel template with two QK stages.
+// Flash attention forward on mma.sync for Hopper (sm_90a): every bf16
+// flash-attention call of the port, one kernel template with two QK
+// stages: the SD UNet's attention at head dims <= 80 (K2), its int8-QK
+// twin (K10), and K1's bf16 calls at head dims 128-512 (the UNet's 160,
+// the VAE's 512, the W8 serving engines' OPT prefill at 128).
 //
 // Replaces
 //  * K2: gill_tpu/ops/attention.py `flash_attention_bthd` (Pallas body
-//    `_flash_kernel`): out = softmax(scale q k^T) v, bf16 in and out, fp32
-//    statistics, the probabilities rounded to bf16 for the P.V product,
-//    causal masking aligned bottom-right (key j visible to query i when
-//    j <= i + S - T), keys at or past `kv_len` masked;
+//    `_flash_kernel`), and K1 in bf16: `flash_attention` (the same body):
+//    out = softmax(scale q k^T) v, bf16 in and out, fp32 statistics, the
+//    probabilities rounded to bf16 for the P.V product, causal masking
+//    aligned bottom-right (key j visible to query i when j <= i + S - T),
+//    keys at or past `kv_len` masked;
 //  * K10: `flash_attention_bthd(q8=True)` (Pallas body `_flash_kernel_i8`):
 //    k int8 per (b, h), q int8 per (b, h, group of `qblock` rows), scores
 //    float(int32 q.k) * ((sq * sk) * scale), then the same softmax and P.V.
 //    Non-causal. The pre-pass below writes the int8 operands.
 // q (B, T, H, D) and k/v (B, S, H, D) come with their own strides (16-byte
 // aligned rows, the wrapper copies otherwise); D is a multiple of 8 (the
-// wrapper zero-pads it otherwise), at most 80 (K2) or 128 (K10, whose
-// UNet gate is d < 128); out is a contiguous (B, T, H, D).
+// wrapper zero-pads it otherwise), at most 512 (bf16) or 128 (K10, whose
+// UNet gate is d < 128), zero-filled up to the kernel's head dim (bf16 40,
+// 80, 128, 160, 256, 512); out is a contiguous (B, T, H, D).
 //
 // What bounds it on an H100 (132 SMs, 989 TFLOP/s bf16, ~3.9e12
 // exponentials/s on the special-function units):
@@ -23,9 +27,12 @@
 //    exponentials take >= 0.069 ms, the products 0.043 ms at the full
 //    tensor rate: the exponentials bind, and int8 QK (K10) can only shrink
 //    the term that does not;
-//  * 32 x 32 self-attention (T = S = 1024, D = 80): the products bind
-//    (0.0054 ms), with only B*H*T/BQ = 128-256 blocks for the 132 SMs;
-//  * the 77-key cross-attention: the bytes of q and out bind.
+//  * 32 x 32 self-attention (T = S = 1024, D = 80) and the VAE's one head
+//    (T = S = 4096, D = 512: 0.035 ms): the products bind; the VAE's
+//    4096 rows of a single (b, h) are few blocks for 132 SMs;
+//  * the 77-key cross-attention and the head-dim-160 calls of the UNet's
+//    16 x 16 and 8 x 8 levels (0.0004-0.0016 ms): the bytes of q and out
+//    bind, and the calls are a few microseconds of launch and tail.
 // The design (the FlashAttention-2 shape), against each:
 //  * one block = BQ query rows of one (b, h), one warp per 16 rows; Q is
 //    loaded once into registers as mma.sync A fragments (ldmatrix);
@@ -42,15 +49,25 @@
 //    (two neighbouring m16n8 C tiles are one m16n8k16 A tile); V is the B
 //    operand through ldmatrix.trans of its [key][d] tile; O, 16 x D fp32 a
 //    warp, stays in registers from the first key tile to the epilogue;
+//  * at head dims 256 and 512 a strip's 16 x D fp32 output would take 128
+//    or 256 registers a lane, so WS = 2 or 4 warps share each 16-row
+//    strip, each owning 128 columns of the QK depth and of O; their
+//    partial 16 x BK scores meet in shared memory behind a named barrier
+//    of the strip, and every warp sums them in the same order, so all run
+//    the same softmax; the VAE takes 32 x 32 tiles (eight warps: one block
+//    an SM by shared memory, 128 blocks in one wave);
 //  * K/V tiles stream through a two-stage ring in shared memory filled by
 //    16-byte cp.async.cg with one block barrier per key tile: tile j + 1 is
 //    in flight while tile j is computed. The ragged key edge and the head
 //    dim past D are zero-filled by the copies' source size, and rows are
 //    an odd number of 16-byte chunks apart, so ldmatrix is conflict-free;
-//  * the epilogue divides by max(l, 1e-30), stages the warp's bf16 rows in
-//    its own slab of shared memory and writes them with 16-byte stores;
-//  * BQ and BK are template parameters in {64, 128}, chosen by the wrapper
-//    (`ops/attention.py` `mma_tile`) from the shape or the caller.
+//  * the epilogue divides by max(l, 1e-30), stages the warp's bf16 rows
+//    (and columns) in its own slab of shared memory and writes them with
+//    16-byte stores;
+//  * BQ and BK are template parameters, chosen by the wrapper
+//    (`ops/attention.py` `flash_plan`): K2 in {64, 128}^2 (`mma_tile`, by
+//    shape or by the caller), head dims 128 / 160 64 x 64, 256 / 512
+//    32 x 32.
 // K10's pre-pass is two launches spread over the card, one block per
 // (b, h, 64 rows of a segment), a segment being one q group or the keys,
 // 16-byte loads four in flight a thread: `qk_amax` writes each block's
@@ -80,51 +97,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 // PTX wrappers
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte cp.async whose source size is 16 or 0 (then the 16 bytes are
-// zero-filled and nothing is read)
-__device__ __forceinline__ void cp_async16_zf(void* dst, const void* src,
-                                              bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x2(unsigned* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x2_t(unsigned* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_u32(p)));
-}
-
-// c += a . b, m16n8k16 bf16 (32 bytes of depth a row)
-__device__ __forceinline__ void mma_bf16_k16(float* c, const unsigned* a,
-                                             unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 // m16n8k8 bf16 (16 bytes of depth)
 __device__ __forceinline__ void mma_bf16_k8(float* c, const unsigned* a,
                                             unsigned b0) {
@@ -156,11 +128,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
 // ---------------------------------------------------------------------------
 // the attention kernel
 // ---------------------------------------------------------------------------
@@ -181,23 +148,34 @@ struct Params {
 
 constexpr int odd_up(int n) { return n | 1; }
 
-template <bool I8, int DK, int BQ, int BK> struct Cfg {
-  static constexpr int NW = BQ / 16, NTH = NW * 32;
+// WS warps share each 16-row strip of the block, warp w % WS owning the
+// head-dim columns [w % WS * DK / WS, + DK / WS) of the QK depth and of O
+// (WS 1 at head dims <= 160; 2 and 4 at 256 and 512, where a strip's
+// (16, DK) fp32 output would not fit one warp's registers)
+template <bool I8, int DK, int BQ, int BK, int WS = 1> struct Cfg {
+  static constexpr int NW = BQ / 16 * WS, NTH = NW * 32;
   // q/k rows: 16-byte chunks (bf16: D 40 -> 5, 80 -> 10; int8: 40 -> 3,
   // 80 -> 5), consumed 32 bytes a step plus a 16-byte tail step
   static constexpr int NCQ = I8 ? (DK + 15) / 16 : DK / 8;
-  static constexpr int NFULL = NCQ / 2;
-  static constexpr bool TAIL = NCQ % 2 == 1;
-  static constexpr int NDT = DK / 8;                  // n8 tiles of O
+  static constexpr int NCW = NCQ / WS;                // a warp's QK chunks
+  static constexpr int NFULL = NCW / 2;
+  static constexpr bool TAIL = NCW % 2 == 1;
+  static constexpr int NDT = DK / 8 / WS;             // a warp's n8 tiles of O
   // shared row strides in chunks: odd, so the 8 rows an ldmatrix reads
   // fall in 8 different 16-byte bank groups
-  static constexpr int LK = odd_up(NCQ), LV = odd_up(NDT);
+  static constexpr int LK = odd_up(NCQ), LV = odd_up(DK / 8);
   static constexpr int LX = LK > LV ? LK : LV;        // Q tile / out staging
   static constexpr int STAGES = 2;
   static constexpr int Q_BYTES = BQ * LX * 16;
   static constexpr int K_BYTES = BK * LK * 16, V_BYTES = BK * LV * 16;
-  static constexpr int SMEM = Q_BYTES + STAGES * (K_BYTES + V_BYTES);
+  // WS > 1: each warp's partial (16, BK) scores, as C fragments (the
+  // block barrier that opens every key tile orders their reuse)
+  static constexpr int PS_BYTES = WS > 1 ? NW * (BK / 8) * 32 * 16 : 0;
+  static constexpr int SMEM = Q_BYTES + STAGES * (K_BYTES + V_BYTES) +
+                              PS_BYTES;
   static_assert(DK % 8 == 0 && BK % 16 == 0 && BQ % 16 == 0, "tile");
+  static_assert(WS == 1 || (!I8 && NCQ % WS == 0 && DK / 8 % WS == 0),
+                "a column split takes bf16 and whole chunks a warp");
 };
 
 // rows [0, n) of a global matrix (row stride rs bytes, 16-byte aligned)
@@ -217,16 +195,18 @@ __device__ __forceinline__ void load_tile(unsigned char* dst,
   }
 }
 
-template <bool I8, int DK, int BQ, int BK>
-__global__ void __launch_bounds__(Cfg<I8, DK, BQ, BK>::NTH)
+template <bool I8, int DK, int BQ, int BK, int WS>
+__global__ void __launch_bounds__(Cfg<I8, DK, BQ, BK, WS>::NTH)
     flash_mma(const Params p) {
-  using C = Cfg<I8, DK, BQ, BK>;
-  constexpr int NTH = C::NTH, NCQ = C::NCQ, NFULL = C::NFULL, NDT = C::NDT;
+  using C = Cfg<I8, DK, BQ, BK, WS>;
+  constexpr int NTH = C::NTH, NCQ = C::NCQ, NCW = C::NCW, NFULL = C::NFULL;
+  constexpr int NDT = C::NDT, NDK = DK / 8;
   constexpr int LK = C::LK, LV = C::LV, LX = C::LX, NT = BK / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* qs = smem;
   unsigned char* ks = qs + C::Q_BYTES;
   unsigned char* vs = ks + C::STAGES * C::K_BYTES;
+  float4* ps = reinterpret_cast<float4*>(vs + C::STAGES * C::V_BYTES);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;        // mma fragment row / pair
@@ -248,21 +228,23 @@ __global__ void __launch_bounds__(Cfg<I8, DK, BQ, BK>::NTH)
   if (nkt > 0) {
     const int nk = min(BK, p.S);
     load_tile<BK, NCQ, LK, NTH>(ks, kg, p.k_ss, nk, p.ncq, tid);
-    load_tile<BK, NDT, LV, NTH>(vs, vg, p.v_ss, nk, ncv, tid);
+    load_tile<BK, NDK, LV, NTH>(vs, vg, p.v_ss, nk, ncv, tid);
   }
   cp_async_commit();
   cp_async_wait_prior<0>();
   __syncthreads();
 
-  // this warp's 16 rows of Q as A fragments, for the whole key loop
-  const int r0 = warp * 16;
+  // this warp's 16 rows (strip warp / WS) of Q as A fragments, its own
+  // chunks [cq, cq + NCW) of the depth, for the whole key loop
+  const int strip = warp / WS, wc = warp % WS;
+  const int r0 = strip * 16, cq = wc * NCW, co = wc * NDT;
   unsigned qa[NFULL > 0 ? NFULL : 1][4], qt[2];
 #pragma unroll
   for (int st = 0; st < NFULL; ++st)
-    ldsm_x4(qa[st], qs + ((r0 + (mi & 1) * 8 + mr) * LX + 2 * st + (mi >> 1))
-                             * 16);
+    ldsm_x4(qa[st], qs + ((r0 + (mi & 1) * 8 + mr) * LX + cq + 2 * st +
+                          (mi >> 1)) * 16);
   if constexpr (C::TAIL)
-    ldsm_x2(qt, qs + ((r0 + (mi & 1) * 8 + mr) * LX + NCQ - 1) * 16);
+    ldsm_x2(qt, qs + ((r0 + (mi & 1) * 8 + mr) * LX + cq + NCW - 1) * 16);
 
   // scale * log2(e) of this lane's two rows (g and g + 8)
   float c_lo, c_hi;
@@ -294,7 +276,7 @@ __global__ void __launch_bounds__(Cfg<I8, DK, BQ, BK>::NTH)
       const int st = (j + 1) & 1;
       load_tile<BK, NCQ, LK, NTH>(ks + st * C::K_BYTES, kg + k1 * p.k_ss,
                                   p.k_ss, nk, p.ncq, tid);
-      load_tile<BK, NDT, LV, NTH>(vs + st * C::V_BYTES, vg + k1 * p.v_ss,
+      load_tile<BK, NDK, LV, NTH>(vs + st * C::V_BYTES, vg + k1 * p.v_ss,
                                   p.v_ss, nk, ncv, tid);
     }
     cp_async_commit();
@@ -313,15 +295,15 @@ __global__ void __launch_bounds__(Cfg<I8, DK, BQ, BK>::NTH)
 #pragma unroll
         for (int st = 0; st < NFULL; ++st) {
           unsigned bm[4];
-          ldsm_x4(bm, kst + ((kt * 16 + (mi >> 1) * 8 + mr) * LK + 2 * st +
-                             (mi & 1)) * 16);
+          ldsm_x4(bm, kst + ((kt * 16 + (mi >> 1) * 8 + mr) * LK + cq +
+                             2 * st + (mi & 1)) * 16);
           mma_s8_k32(si[2 * kt], qa[st], bm[0], bm[1]);
           mma_s8_k32(si[2 * kt + 1], qa[st], bm[2], bm[3]);
         }
         if constexpr (C::TAIL) {
           unsigned bm[2];
-          ldsm_x2(bm, kst + ((kt * 16 + (mi & 1) * 8 + mr) * LK + NCQ - 1) *
-                                16);
+          ldsm_x2(bm, kst + ((kt * 16 + (mi & 1) * 8 + mr) * LK + cq + NCW -
+                             1) * 16);
           mma_s8_k16(si[2 * kt], qt, bm[0]);
           mma_s8_k16(si[2 * kt + 1], qt, bm[1]);
         }
@@ -338,17 +320,43 @@ __global__ void __launch_bounds__(Cfg<I8, DK, BQ, BK>::NTH)
 #pragma unroll
         for (int st = 0; st < NFULL; ++st) {
           unsigned bm[4];
-          ldsm_x4(bm, kst + ((kt * 16 + (mi >> 1) * 8 + mr) * LK + 2 * st +
-                             (mi & 1)) * 16);
+          ldsm_x4(bm, kst + ((kt * 16 + (mi >> 1) * 8 + mr) * LK + cq +
+                             2 * st + (mi & 1)) * 16);
           mma_bf16_k16(s[2 * kt], qa[st], bm[0], bm[1]);
           mma_bf16_k16(s[2 * kt + 1], qa[st], bm[2], bm[3]);
         }
         if constexpr (C::TAIL) {
           unsigned bm[2];
-          ldsm_x2(bm, kst + ((kt * 16 + (mi & 1) * 8 + mr) * LK + NCQ - 1) *
-                                16);
+          ldsm_x2(bm, kst + ((kt * 16 + (mi & 1) * 8 + mr) * LK + cq + NCW -
+                             1) * 16);
           mma_bf16_k8(s[2 * kt], qt, bm[0]);
           mma_bf16_k8(s[2 * kt + 1], qt, bm[1]);
+        }
+      }
+      if constexpr (WS > 1) {
+        // the strip's WS partial scores meet in shared memory; every warp
+        // of the strip sums them in the same order, so all hold the same S
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          ps[(warp * NT + n) * 32 + lane] =
+              make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + strip), "n"(WS * 32)
+                     : "memory");
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          float4 t = ps[((strip * WS) * NT + n) * 32 + lane];
+#pragma unroll
+          for (int w = 1; w < WS; ++w) {
+            const float4 u = ps[((strip * WS + w) * NT + n) * 32 + lane];
+            t.x += u.x;
+            t.y += u.y;
+            t.z += u.z;
+            t.w += u.w;
+          }
+          s[n][0] = t.x;
+          s[n][1] = t.y;
+          s[n][2] = t.z;
+          s[n][3] = t.w;
         }
       }
     }
@@ -419,22 +427,24 @@ __global__ void __launch_bounds__(Cfg<I8, DK, BQ, BK>::NTH)
 #pragma unroll
       for (int dp = 0; dp < NDT / 2; ++dp) {
         unsigned bm[4];
-        ldsm_x4_t(bm, vst + ((kk * 16 + (mi & 1) * 8 + mr) * LV + 2 * dp +
-                             (mi >> 1)) * 16);
+        ldsm_x4_t(bm, vst + ((kk * 16 + (mi & 1) * 8 + mr) * LV + co +
+                             2 * dp + (mi >> 1)) * 16);
         mma_bf16_k16(o[2 * dp], a, bm[0], bm[1]);
         mma_bf16_k16(o[2 * dp + 1], a, bm[2], bm[3]);
       }
       if constexpr (NDT % 2 == 1) {
         unsigned bm[2];
-        ldsm_x2_t(bm, vst + ((kk * 16 + (mi & 1) * 8 + mr) * LV + NDT - 1) *
-                              16);
+        ldsm_x2_t(bm, vst + ((kk * 16 + (mi & 1) * 8 + mr) * LV + co + NDT -
+                             1) * 16);
         mma_bf16_k16(o[NDT - 1], a, bm[0], bm[1]);
       }
     }
   }
 
   // epilogue: the quad's row sums, O / max(l, 1e-30) to bf16 through this
-  // warp's own rows of the Q tile, then 16-byte stores
+  // warp's own rows and columns of the Q tile (every warp has read its Q
+  // fragments, and the warps of a strip own disjoint columns), then
+  // 16-byte stores
 #pragma unroll
   for (int sh = 1; sh <= 2; sh <<= 1) {
     l_lo += __shfl_xor_sync(0xffffffffu, l_lo, sh);
@@ -446,34 +456,36 @@ __global__ void __launch_bounds__(Cfg<I8, DK, BQ, BK>::NTH)
   __syncwarp();
 #pragma unroll
   for (int i = 0; i < NDT; ++i) {
-    *reinterpret_cast<unsigned*>(slab + (g * LX + i) * 16 + t4 * 4) =
+    *reinterpret_cast<unsigned*>(slab + (g * LX + co + i) * 16 + t4 * 4) =
         pack_bf16(o[i][0] * inv_lo, o[i][1] * inv_lo);
-    *reinterpret_cast<unsigned*>(slab + ((g + 8) * LX + i) * 16 + t4 * 4) =
+    *reinterpret_cast<unsigned*>(slab + ((g + 8) * LX + co + i) * 16 +
+                                 t4 * 4) =
         pack_bf16(o[i][2] * inv_hi, o[i][3] * inv_hi);
   }
   __syncwarp();
   const long long orow = (long long)p.H * p.D * 2;
   unsigned char* og = p.o + ((long long)b * p.T * p.H + h) * p.D * 2;
   for (int i = lane; i < 16 * NDT; i += 32) {
-    const int r = i / NDT, c = i - (i / NDT) * NDT, qr = q0 + r0 + r;
+    const int r = i / NDT, c = co + i - (i / NDT) * NDT, qr = q0 + r0 + r;
     if (qr < p.T && c < ncv)
       *reinterpret_cast<uint4*>(og + qr * orow + c * 16) =
           *reinterpret_cast<const uint4*>(slab + (r * LX + c) * 16);
   }
 }
 
-template <bool I8, int DK, int BQ, int BK>
+template <bool I8, int DK, int BQ, int BK, int WS = 1>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  using C = Cfg<I8, DK, BQ, BK>;
+  using C = Cfg<I8, DK, BQ, BK, WS>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_mma<I8, DK, BQ, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::SMEM);
+      flash_mma<I8, DK, BQ, BK, WS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((p.T + BQ - 1) / BQ, p.B * p.H);
-  flash_mma<I8, DK, BQ, BK><<<grid, C::NTH, C::SMEM, stream>>>(p);
+  flash_mma<I8, DK, BQ, BK, WS><<<grid, C::NTH, C::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
+// head dims 40 and 80 (K2, K10) and int8 128 (K10): (BQ, BK) in {64, 128}^2
 template <bool I8, int DK>
 cudaError_t by_tile(const Params& p, int bq, int bk, cudaStream_t st) {
   if (bq == 64 && bk == 64) return launch<I8, DK, 64, 64>(p, st);
@@ -483,11 +495,15 @@ cudaError_t by_tile(const Params& p, int bq, int bk, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
-// the kernel's head dim for D (a multiple of 8): 40, 80 or, int8 QK
-// only, 128 (bf16 above 80 is csrc/flash_attn.cu's); 0 for others
+
+// the kernel's head dim for D (a multiple of 8): bf16 40, 80, 128, 160,
+// 256 or 512; int8 QK 40, 80 or 128; 0 for others
 int kernel_dim(int D, bool i8) {
   if (D <= 0 || D % 8) return 0;
-  return D <= 40 ? 40 : D <= 80 ? 80 : i8 && D <= 128 ? 128 : 0;
+  if (i8) return D <= 40 ? 40 : D <= 80 ? 80 : D <= 128 ? 128 : 0;
+  for (int dk : {40, 80, 128, 160, 256, 512})
+    if (D <= dk) return dk;
+  return 0;
 }
 
 template <bool I8>
@@ -500,6 +516,15 @@ cudaError_t dispatch(const Params& p, int bq, int bk, cudaStream_t st) {
   if (dk == 80) return by_tile<I8, 80>(p, bq, bk, st);
   if constexpr (I8) {
     if (dk == 128) return by_tile<I8, 128>(p, bq, bk, st);
+  } else {
+    // K1: 64 x 64 tiles at 128 and 160; 32 x 32 at 256 and 512, two and
+    // four warps a 16-row strip
+    const int tile = dk <= 160 ? 64 : 32;
+    if (bq != tile || bk != tile) return cudaErrorInvalidValue;
+    if (dk == 128) return launch<false, 128, 64, 64>(p, st);
+    if (dk == 160) return launch<false, 160, 64, 64>(p, st);
+    if (dk == 256) return launch<false, 256, 32, 32, 2>(p, st);
+    if (dk == 512) return launch<false, 512, 32, 32, 4>(p, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -697,9 +722,11 @@ __global__ void __launch_bounds__(256)
 
 }  // namespace
 
-// bf16 attention (K2). q, k, v bf16 with unit last strides and the strides
-// given (elements); o a contiguous bf16 (B, T, H, D); D a multiple of 8 up
-// to 80; (bq, bk) in {64, 128}^2. Returns a cudaError_t (0 = launched).
+// bf16 attention (K2 at head dims <= 80, K1 above). q, k, v bf16 with unit
+// last strides and the strides given (elements); o a contiguous bf16 (B, T,
+// H, D); D a multiple of 8 up to 512; (bq, bk) one of the tiles `dispatch`
+// takes for D (`ops/attention.py` `flash_plan`). Returns a cudaError_t
+// (0 = launched).
 extern "C" int gill_flash_mma(const void* q, const void* k, const void* v,
                               void* o, int B, int T, int S, int H, int D,
                               long long q_sb, long long q_st, long long q_sh,

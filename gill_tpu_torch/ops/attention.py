@@ -13,8 +13,8 @@ lies on a CUDA device" in place of `_on_tpu()`:
     over the cache, optional own-token `extra_kv`, scalar or per-row
     `kv_offset`, int8 caches through `kv_scales`);
   * multi-token queries with no bias / kv_offset and >= 256 keys on CUDA, or
-    `impl="flash"` -> `flash_attention` (csrc/flash_mma.cu for bf16 at head
-    dims <= 80, csrc/flash_attn.cu otherwise);
+    `impl="flash"` -> `flash_attention` (csrc/flash_mma.cu for bf16,
+    csrc/flash_attn.cu for fp32, at the launch plan `flash_plan` gives);
   * everything else -> `_xla_attention` (plain einsum + softmax).
 gill_tpu gates its prefix-decode kernel behind GILL_PREFIX_DECODE_MIN
 (default 0, off): on a TPU v5e the Pallas call serialised its cache DMA
@@ -142,12 +142,80 @@ def flash_attention_ref(q, k, v, *, causal: bool = False,
 # the CUDA kernels: csrc/flash_attn.cu (K1) and csrc/flash_mma.cu (K2, K10)
 # ---------------------------------------------------------------------------
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 512
-# bf16 calls up to this head dim take csrc/flash_mma.cu (K2), at the tile
-# (block_q, block_k) in MMA_TILES x MMA_TILES
+# bf16 calls up to this head dim are the UNet's K2, at the tile (block_q,
+# block_k) in MMA_TILES x MMA_TILES
 MMA_MAX_HEAD_DIM = 80
 MMA_TILES = (64, 128)
+# the head dims each kernel is instantiated at (a call's head dim is
+# zero-padded up to the next one)
+BF16_KERNEL_DIMS = (40, 80, 128, 160, 256, 512)
+FP32_KERNEL_DIMS = (64, 96, 128, 160, 256, 512)
+
+
+class FlashPlan(NamedTuple):
+    """One flash-attention launch: `route` "mma" (csrc/flash_mma.cu, bf16)
+    or "fp32" (csrc/flash_attn.cu); `kernel` the TPU kernel it stands for
+    ("K2": the UNet's bf16 calls at head dims <= 80, else "K1"); `dk` the
+    kernel's head dim; `bq` query rows and `bk` keys a step; `ws` the warps
+    that share each 16-row strip (their head-dim columns split); `blocks`
+    the grid's size."""
+    route: str
+    kernel: str
+    dk: int
+    bq: int
+    bk: int
+    ws: int
+    blocks: int
+
+
+def flash_plan(dtype, b: int, t: int, h: int, d: int, *, block_q: int = 0,
+               block_k: int = 0) -> FlashPlan:
+    """The launch plan of `flash_attention` for q (b, t, h, d). bf16 takes
+    csrc/flash_mma.cu: at head dims <= 80 (K2) the tile `mma_tile` gives;
+    at 128 and 160 64 query rows (four warps) and 64 keys (16 or 32 rows
+    fill more SMs at the UNet's 16 x 16 and 8 x 8 calls but were slower on
+    the H100: the calls are a few microseconds of launch, loads and tail);
+    at 256 and 512 (the VAE) 32 rows and 32 keys, two or
+    four warps sharing each 16-row strip (a strip's output is 128-256 fp32
+    registers a lane otherwise; one block an SM by shared memory, so 32
+    rows fill 128 SMs in one wave where 16 would take two). fp32 takes
+    csrc/flash_attn.cu: 32 rows and 32 keys a step (16 and 16 at head dim
+    512), which puts CLIP on 144 blocks and the OPT prefill on 320.
+    block_q / block_k pick K2's tile and raise ValueError elsewhere; other
+    dtypes raise TypeError and head dims outside (0, 512] ValueError."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention takes fp32 or bf16, got {dtype}")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside (0, {MAX_HEAD_DIM}]")
+    _check_tile(dtype, t, d, block_q, block_k)
+    k2 = mma_eligible(dtype, d)
+    dims = BF16_KERNEL_DIMS if dtype == torch.bfloat16 else FP32_KERNEL_DIMS
+    dk = next(x for x in dims if x >= d)
+    ws = 1
+    if dtype == torch.float32:
+        bq = bk = 16 if dk == 512 else 32
+    elif k2:
+        bq, bk = mma_tile(t, block_q, block_k)
+    elif dk <= 160:
+        bq, bk = 64, 64
+    else:
+        bq = bk = 32
+        ws = dk // 128
+    return FlashPlan("fp32" if dtype == torch.float32 else "mma",
+                     "K2" if k2 else "K1", dk, bq, bk, ws,
+                     b * h * -(-t // bq))
+
+
+def _check_tile(dtype, t: int, d: int, block_q: int, block_k: int) -> None:
+    """block_q / block_k pick K2's tile (`mma_tile` raises for values it
+    does not take); any other call raises ValueError for a nonzero one."""
+    if mma_eligible(dtype, d):
+        mma_tile(t, block_q, block_k)
+    elif block_q or block_k:
+        raise ValueError(f"block_q / block_k pick the tile of the bf16 "
+                         f"kernel at head dims <= {MMA_MAX_HEAD_DIM}; a "
+                         f"{dtype} call at head dim {d} has none")
 
 
 def _flash_lib():
@@ -157,9 +225,9 @@ def _flash_lib():
     fn = lib.gill_flash_attn
     if fn.argtypes is None:
         i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-        fn.argtypes = [i, p, p, p, p, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, i, i, i, i, i,
                        ll, ll, ll, ll, ll, ll, ll, ll, ll,
-                       ctypes.c_float, i, i, p]
+                       ctypes.c_float, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -185,7 +253,9 @@ def _mma_lib():
 
 
 def mma_eligible(dtype, d: int) -> bool:
-    """Whether a call of this dtype and head dim takes csrc/flash_mma.cu."""
+    """Whether a call of this dtype and head dim is the UNet's K2 (bf16 at
+    head dims <= 80: block_q / block_k apply, counted on
+    `flash_attention.mma_launches`)."""
     return dtype == torch.bfloat16 and 0 < d <= MMA_MAX_HEAD_DIM
 
 
@@ -206,13 +276,14 @@ def mma_tile(t: int, block_q: int = 0, block_k: int = 0) -> tuple:
     return block_q or (64 if t <= 64 else 128), block_k or 64
 
 
-def _mma_ready(x, d8: int):
-    """x zero-padded to head dim d8 (a copy), or copied contiguous when its
-    base or strides break the kernel's 16-byte rows, else x itself."""
-    if x.shape[-1] != d8:
-        return torch.nn.functional.pad(x, (0, d8 - x.shape[-1]))
+def _pad_ready(x, dp: int, align: int):
+    """x zero-padded to head dim dp (a copy), or copied contiguous when its
+    base or strides break the kernels' 16-byte rows (strides a multiple of
+    `align` elements), else x itself."""
+    if x.shape[-1] != dp:
+        return torch.nn.functional.pad(x, (0, dp - x.shape[-1]))
     if x.stride(-1) != 1 or x.data_ptr() % 16 or any(
-            st % 8 for st in x.stride()[:-1]):
+            st % align for st in x.stride()[:-1]):
         return x.clone(memory_format=torch.contiguous_format)
     return x
 
@@ -231,13 +302,12 @@ def flash_attention(q, k, v, *, causal: bool = False,
     (K2): strided inputs at the true head dim (no lane padding, no
     transposes); `scale` defaults to 1/sqrt(D); keys at or beyond `kv_len`
     are masked. `fast` (the Pallas clamp-shift softmax) is accepted and
-    computed exactly. CUDA tensors launch a kernel or raise: bf16 at D <= 80
-    csrc/flash_mma.cu at the tile `mma_tile(T, block_q, block_k)` gives (it
-    counts on `flash_attention.mma_launches`), fp32 at D <= 512 and bf16 at
-    80 < D <= 512 csrc/flash_attn.cu (`flash_attention.launches`), whose
-    tile follows the head dim: there a nonzero block_q / block_k raises.
-    CPU tensors take `flash_attention_ref`, after the same checks of
-    block_q / block_k."""
+    computed exactly. CUDA tensors launch a kernel at the plan `flash_plan`
+    gives, or raise: bf16 csrc/flash_mma.cu (at D <= 80 K2, at the tile
+    block_q / block_k pick, counted on `flash_attention.mma_launches`;
+    above, K1), fp32 csrc/flash_attn.cu (K1); K1 counts on
+    `flash_attention.launches`. A block_q / block_k outside K2 raises, on
+    the CPU too. CPU tensors take `flash_attention_ref`."""
     del fast
     b, t, h, d = q.shape
     s = k.shape[1]
@@ -245,50 +315,46 @@ def flash_attention(q, k, v, *, causal: bool = False,
     kv_len = s if kv_len is None else int(kv_len)
     if not 0 < kv_len <= s:
         raise ValueError(f"kv_len {kv_len} outside (0, {s}]")
-    mma = mma_eligible(q.dtype, d)
-    if mma:
-        bq, bk = mma_tile(t, block_q, block_k)
-    elif block_q or block_k:
-        raise ValueError(f"block_q / block_k pick the tile of the bf16 "
-                         f"kernel at head dims <= {MMA_MAX_HEAD_DIM}; a "
-                         f"{q.dtype} call at head dim {d} has none")
+    _check_tile(q.dtype, t, d, block_q, block_k)
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                    kv_len=kv_len)
     if k.shape != (b, s, h, d) or v.shape != (b, s, h, d):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes fp32 or bf16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
     if not (k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must share one device")
+    plan = flash_plan(q.dtype, b, t, h, d, block_q=block_q, block_k=block_k)
     from gill_tpu_torch.ops._build import check
 
-    if mma:
+    if plan.route == "mma":
         d8 = -(-d // 8) * 8
-        q, k, v = (_mma_ready(x, d8) for x in (q, k, v))
+        q, k, v = (_pad_ready(x, d8, 8) for x in (q, k, v))
         out = torch.empty((b, t, h, d8), device=q.device, dtype=q.dtype)
         err = _mma_lib().gill_flash_mma(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, t, s, h, d8, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], scale, int(causal), kv_len, bq, bk, _stream(q))
-        check(err, "flash_attention (flash_mma)")
-        flash_attention.mma_launches += 1
+            *v.stride()[:3], scale, int(causal), kv_len, plan.bq, plan.bk,
+            _stream(q))
+        check(err, f"flash_attention (flash_mma, {plan.kernel})")
+        if plan.kernel == "K2":
+            flash_attention.mma_launches += 1
+        else:
+            flash_attention.launches += 1
         return out if d8 == d else out[..., :d].contiguous()
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
-    out = torch.empty((b, t, h, d), device=q.device, dtype=q.dtype)
-    err = _flash_lib()(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                       v.data_ptr(), out.data_ptr(), b, t, s, h, d,
-                       q.stride(0), q.stride(1), q.stride(2),
-                       k.stride(0), k.stride(1), k.stride(2),
-                       v.stride(0), v.stride(1), v.stride(2),
-                       scale, int(causal), kv_len, _stream(q))
+    d4 = -(-d // 4) * 4
+    q, k, v = (_pad_ready(x, d4, 4) for x in (q, k, v))
+    out = torch.empty((b, t, h, d4), device=q.device, dtype=q.dtype)
+    err = _flash_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), b, t, s, h, d4,
+                       *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                       scale, int(causal), kv_len, plan.dk, _stream(q))
     check(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return out if d4 == d else out[..., :d].contiguous()
 
 
 flash_attention.launches = 0
@@ -438,7 +504,7 @@ def flash_attention_q8(q, k, v, *, scale: float, q_block: int = 1024,
         raise ValueError(f"qk8 shapes {[tuple(x.shape) for x in qk8]}, "
                          f"want {want}")
     d8 = -(-d // 8) * 8
-    v = _mma_ready(v, d8)
+    v = _pad_ready(v, d8, 8)
     bq, bk = mma_tile(t)
     out = torch.empty((b, t, h, d8), device=q.device, dtype=q.dtype)
     err = _mma_lib().gill_flash_mma_q8(

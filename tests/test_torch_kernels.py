@@ -22,7 +22,10 @@ sum in another order); the int8-QK attention two bf16 ulps (both quantize
 identically, so the int8 values and int32 scores are equal and only the
 softmax's summation order differs), and its pre-pass exactly equal to the
 plain version on the CPU. The UNet's bf16 attention at head dims <= 80
-(csrc/flash_mma.cu) two bf16 ulps at every tile it takes. The probe kernels: the repeated-product
+(csrc/flash_mma.cu) two bf16 ulps at every tile it takes; K1 (fp32 on
+csrc/flash_attn.cu, bf16 at head dims 128-512 on csrc/flash_mma.cu) the
+same 1e-4 / two bf16 ulps at each of its main-path shapes, ragged and
+causal calls, `kv_len` and fused views. The probe kernels: the repeated-product
 probe (S1) int8 exactly equal and bf16 within 1e-5 of the largest output,
 relative (fp32 sums in another order); the sweep's flash variants (S2, S3)
 two bf16 ulps of the largest output, as flash attention.
@@ -187,7 +190,7 @@ def test_unet_call_launches_the_mma_kernel(cuda):
 
 
 @pytest.mark.parametrize("d,m", [(320, 8192), (320, 77), (640, 2048),
-                                 (1280, 512), (1280, 130)])
+                                 (1280, 512), (1280, 130), (1280, 128)])
 def test_geglu_kernel_matches_plain(cuda, d, m):
     g = torch.Generator(cuda).manual_seed(d + m)
     bf = torch.bfloat16
@@ -649,3 +652,117 @@ def test_flash_variant_kernel_refuses_what_it_does_not_take(cuda):
     off = off[1:].view(1, 128, 2, 40)
     with pytest.raises(ValueError):
         fv.flash_variant(off, q, q, block_q=64, block_k=128)
+
+
+def _k1_tol(want):
+    """1e-4 absolute in fp32; two bf16 ulps of the largest output in
+    bf16."""
+    if want.dtype == torch.float32:
+        return 1e-4
+    return 2 * 2.0 ** -7 * float(want.float().abs().max())
+
+
+def _k1_check(got, want):
+    assert got.is_contiguous() and got.shape == want.shape
+    assert got.dtype == want.dtype
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _k1_tol(want), err
+
+
+# K1's main-path shapes at full size (CLIP ViT-L/14, the OPT-6.7B prefill,
+# the UNet's head-dim-160 self- and cross-attention at CFG batch 2, the
+# VAE's one 512-wide head), then ragged query / key counts
+K1_CASES = [(1, 257, 257, 16, 64, False), (1, 320, 320, 32, 128, True),
+            (2, 256, 256, 8, 160, False), (2, 256, 77, 8, 160, False),
+            (2, 64, 64, 8, 160, False), (2, 64, 77, 8, 160, False),
+            (1, 4096, 4096, 1, 512, False),
+            (1, 257, 77, 4, 160, False), (2, 200, 130, 3, 512, False),
+            (1, 200, 257, 2, 256, False), (1, 100, 300, 4, 128, True),
+            (1, 70, 130, 2, 96, False), (1, 50, 60, 2, 44, True)]
+
+
+@pytest.mark.parametrize("b,t,s,h,d,causal,dtype", [
+    (*case, dt) for case in K1_CASES for dt in ("float32", "bfloat16")
+    if dt == "float32" or case[4] > attn.MMA_MAX_HEAD_DIM])
+def test_k1_kernel_matches_plain(cuda, b, t, s, h, d, causal, dtype):
+    """K1 against `flash_attention_ref` in both dtypes (bf16 at head dims
+    above K2's): fp32 on csrc/flash_attn.cu, bf16 on csrc/flash_mma.cu;
+    each call counts once on `flash_attention.launches` and never on
+    K2's."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(t + s + d)
+    q, k, v = (torch.randn(b, n, h, d, device=cuda, generator=g).to(dt)
+               for n in (t, s, s))
+    fa = attn.flash_attention
+    before = (fa.launches, fa.mma_launches)
+    got = fa(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.mma_launches) == (before[0] + 1, before[1])
+    _k1_check(got, attn.flash_attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,kv_len", [(64, 77), (128, 200), (160, 77),
+                                      (512, 100)])
+def test_k1_kernel_masks_past_kv_len(cuda, d, kv_len, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(d + kv_len)
+    q, k, v = (torch.randn(1, n, 2, d, device=cuda, generator=g).to(dt)
+               for n in (150, 257, 257))
+    got = attn.flash_attention(q, k, v, kv_len=kv_len)
+    _k1_check(got, attn.flash_attention_ref(q, k[:, :kv_len], v[:, :kv_len]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,causal", [(64, False), (128, True), (160, False),
+                                      (512, False)])
+def test_k1_kernel_takes_fused_and_unaligned_views(cuda, d, causal, dtype):
+    """Head-split views of one fused (B, T, 3, H, D) projection go in as
+    they are; a view whose base is not 16-byte aligned is copied first."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(d)
+    qkv = torch.randn(2, 300, 3, 2, d, device=cuda, generator=g).to(dt)
+    q, k, v = qkv.unbind(2)
+    want = attn.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=causal)
+    _k1_check(attn.flash_attention(q, k, v, causal=causal), want)
+    buf = torch.randn(70 * 2 * d + 1, device=cuda, generator=g).to(dt)
+    x = buf[1:].view(1, 70, 2, d)
+    assert x.data_ptr() % 16 != 0
+    _k1_check(attn.flash_attention(x, x, x),
+              attn.flash_attention_ref(x, x, x))
+
+
+def test_unet_call_and_vae_decode_launch_k1_and_k3(cuda):
+    """A bf16 UNet with SD v1.5's 320- and 1280-channel levels (8 heads:
+    head dims 40 and 160), two levels at a 16 x 16 latent: its 14 attention
+    calls take K2 (head dim 40) and K1 (160), its 7 GEGLU FFs K3, and the
+    output is finite; a bf16 VAE decoder whose mid block is 512 channels
+    wide (one head of 512) decodes a 16 x 16 latent through K1."""
+    from gill_tpu_torch import config as tcfg
+    from gill_tpu_torch.models.sd import unet, vae
+    from gill_tpu_torch.nn.core import Init, tree_map
+
+    fa, gf = attn.flash_attention, geglu.geglu_ff
+    cfg = tcfg.UNetConfig(block_out_channels=(320, 1280), layers_per_block=1,
+                          down_block_types=("CrossAttnDownBlock2D",) * 2,
+                          up_block_types=("CrossAttnUpBlock2D",) * 2)
+    g = torch.Generator(cuda).manual_seed(0)
+    params = tree_map(lambda x: x.bfloat16(), unet.init(Init(g, cuda), cfg))
+    lat = torch.randn(2, 16, 16, 4, device=cuda, generator=g).bfloat16()
+    ctx = torch.randn(2, 77, 768, device=cuda, generator=g).bfloat16()
+    before = (fa.launches, fa.mma_launches, gf.launches)
+    out = unet.apply(params, cfg, lat, torch.tensor(501.0, device=cuda), ctx)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all())
+    k1, k2, k3 = (fa.launches - before[0], fa.mma_launches - before[1],
+                  gf.launches - before[2])
+    assert k1 > 0 and k2 > 0 and k1 + k2 == 14 and k3 == 7
+    vcfg = tcfg.VAEConfig(block_out_channels=(64, 512), layers_per_block=1)
+    vparams = tree_map(lambda x: x.bfloat16(),
+                       vae.init_decoder(Init(g, cuda), vcfg))
+    before = fa.launches
+    img = vae.decode(vparams, vcfg, lat[:1])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(img.float()).all())
+    assert fa.launches - before == 1
