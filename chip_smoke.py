@@ -15,7 +15,12 @@
    peak rate of their type and, for attention, exponentials over the
    special-function units' ~3.9e12/s) and, where one PyTorch call computes
    the same function, that call's time. Each attention and GEGLU row names
-   its launch plan (`flash_plan`, `geglu_plan`). The UNet's bf16 attention
+   its launch plan (`flash_plan`, `geglu_plan`, `w8_plan`). The W8 matmul
+   (K4) is also timed L2-cold (`ms_cold`: its calls cycle through copies
+   of the weight, >= 2x the L2 in all, as a decode step reads each layer's
+   weights from device memory; its bound is set against that time) beside
+   `torch.matmul` with the dequantized bf16 weight (2x the bytes), and two
+   of its calls must agree bit for bit. The UNet's bf16 attention
    at head dims 40 / 80 (K2) is also timed at every tile of
    csrc/flash_mma.cu, its int8-QK twin (K10) pre-pass and main kernel
    apart.
@@ -35,7 +40,7 @@
        RandomState(7), prompts U[16,240], generations U[16,192]):
        generated tokens/s, ms a decode step with the valid-prefix kernel
        and with the plain decode path, the device's busy share over one
-       profiled chunk;
+       profiled chunk and the W8 matmul's device us a step in it;
    (B) `generate_for_images_and_texts_batch` (8 slots, chunk 16): 8 prompts
        on the text route, then 2 with gen_scale_factor=1e6 through the tap
        ring, retrieval, the decision MLP, GILLMapper, SD and the re-rank;
@@ -64,8 +69,8 @@
    H 8, D 40), then every probe of gill_tpu_torch/scripts/ once at its
    default shapes with its repetitions cut, printing its rows (attn_mxu_
    probe, attn_sweep, int8_probe, profile_sd, profile_sd_ablate,
-   profile_ln_fuse, profile_prefix_decode); S1-S3 must launch there and
-   no probe row may fail.
+   profile_ln_fuse, profile_prefix_decode, w8_probe); S1-S3 and K4 must
+   launch there and no probe row may fail.
 8. Checks: finite outputs of the expected shapes; request (a) gives the
    same tokens with every kernel swapped for its plain version; CLIP, the
    OPT prefill, one full-width UNet step, the VAE decode and one W8 decode
@@ -80,11 +85,12 @@ line, the nvidia-smi name/power line and {"ok": true, "device": {...}}.
 instead compares two trees on one card: each tree's own `main_path` (step
 4 and its checks), each run in a fresh process, in ORDER ("o" the other
 tree, "t" this one; default "otto"), ROUNDS times (default 2), then in the same process ten timed
-full-width UNet calls and one under torch.profiler. OTHER_ROOT holds
+full-width UNet calls and one under torch.profiler, and the tree's W8
+matmul at every W8_SHAPES row, L2-warm and L2-cold. OTHER_ROOT holds
 another checkout, e.g. the parent commit unpacked with `git archive` into
 a directory that .gitignore lists. It prints one "AB" JSON line per run
 (request times, stage means, the UNet calls' host-clock times and device
-profile, failures) and the card's name and power limit.
+profile, the W8 times, failures) and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -104,8 +110,8 @@ sys.path.insert(0, REPO)
 
 # the card's peaks, bound(), the event timer and the profiler summary are
 # shared with the probe scripts
-from gill_tpu_torch.scripts._timing import (bound, cuda_ms,  # noqa: E402
-                                            device_profile, smi_line)
+from gill_tpu_torch.scripts._timing import (  # noqa: E402
+    bound, cold_copies, cuda_ms, cuda_ms_cycled, device_profile, smi_line)
 
 FLASH_SRC = "gill_tpu_torch/csrc/flash_attn.cu"
 MMA_SRC = "gill_tpu_torch/csrc/flash_mma.cu"
@@ -260,6 +266,7 @@ def kernel_phase(torch, dev):
     from gill_tpu_torch.ops.decode_attn import (prefix_decode_attention,
                                                 prefix_decode_attention_ref)
     from gill_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ref, geglu_plan
+    from gill_tpu_torch.ops import w8_matmul as w8_mod
     from gill_tpu_torch.ops.w8_matmul import w8_matmul, w8_matmul_ref
 
     g = torch.Generator(dev).manual_seed(1234)
@@ -334,6 +341,10 @@ def kernel_phase(torch, dev):
                    x, w1, b1, w2, b2), 20),
                "bound_ms": bms, "bound_by": by, "library_ms": None}
         record(row, err, geglu_tol(ref.float()))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the L2-cold times' extra weights come from their own generator, so
+    # that every row draws the inputs it drew before they were added
+    g_cold = torch.Generator(dev).manual_seed(4321)
     for site, m, kdim, n, dt in W8_SHAPES:
         dtype = getattr(torch, dt)
         x = torch.randn(m, kdim, device=dev, generator=g).to(dtype)
@@ -341,8 +352,14 @@ def kernel_phase(torch, dev):
                            dtype=torch.int8)
         ws = 1e-4 + 1e-3 * torch.rand(n, device=dev, generator=g)
         bias = (0.1 * torch.randn(n, device=dev, generator=g)).to(dtype)
+        # the weight and copies of it whose total is >= 2x the L2: a decode
+        # step's calls each read a new layer's weights from device memory
+        w8s = [w8] + [torch.randint(-127, 128, (kdim, n), device=dev,
+                                    generator=g_cold, dtype=torch.int8)
+                      for _ in range(cold_copies(kdim * n) - 1)]
         out = w8_matmul(x, w8, ws, bias)
         ref = w8_matmul_ref(x, w8, ws, bias)
+        again = w8_matmul(x, w8, ws, bias)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         esize = x.element_size()
@@ -350,16 +367,32 @@ def kernel_phase(torch, dev):
                         2.0 * m * kdim * n,
                         "fp32" if dtype == torch.float32 else "bf16")
         lib_ms, lib_note = int8pack_ms(torch, x, w8, ws)
+        plan = w8_mod.w8_plan(m, kdim, n, dtype, sms)
         row = {"name": "w8_matmul", "site": site, "route": "cuda",
                "source": W8_SRC, "replaces": W8_REPLACES,
                "shape": f"x({m},{kdim}) {dt} w8({kdim},{n})",
+               "plan": plan._asdict(),
                "ms": cuda_ms(lambda: w8_matmul(x, w8, ws, bias), 20),
+               "ms_cold": cuda_ms_cycled(
+                   [lambda w=w: w8_matmul(x, w, ws, bias) for w in w8s], 24),
                "plain_ms": cuda_ms(lambda: w8_matmul_ref(
                    x, w8, ws, bias), 20),
-               "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-               "library_computes": lib_note}
-        record(row, err, out_tol(torch, ref))
-        del x, w8, out, ref
+               "bound_ms": bms, "bound_by": by,
+               "bound_vs": "ms_cold (each call of a decode step reads its "
+                           "weights from device memory)",
+               "library_ms": lib_ms, "library_computes": lib_note,
+               "bitwise_equal_twice": bool(torch.equal(out, again))}
+        row["bf16_matmul_ms"], row["bf16_matmul_note"] = bf16_matmul_ms(
+            torch, x, w8s, ws)
+        del w8s, w8, out, again
+        log(f"  w8_matmul {site}: L2-cold {row['ms_cold']:.4f} ms "
+            f"({row['ms_cold'] / bms:.2f}x the bound), warm {row['ms']:.4f};"
+            f" bf16 matmul {row['bf16_matmul_ms']:.4f} ms; plan {plan}")
+        record(row, err, out_tol(torch, ref),
+               ok=err <= out_tol(torch, ref) and row["bitwise_equal_twice"],
+               note=f"; two calls bitwise equal: "
+                    f"{row['bitwise_equal_twice']}")
+        del x, ref
     h, d = 32, 128
     for b, s in DECODE_SHAPES:
         bf = torch.bfloat16
@@ -414,6 +447,19 @@ def int8pack_ms(torch, x, w8, ws):
     w8t, sc = w8.t().contiguous(), ws.to(x.dtype)
     return (cuda_ms(lambda: torch._weight_int8pack_mm(x, w8t, sc), 20),
             "torch._weight_int8pack_mm: x @ (w8 * ws), the bias add left out")
+
+
+def bf16_matmul_ms(torch, x, w8s, ws):
+    """(ms, note): `torch.matmul` of x in bf16 with the dequantized bf16
+    weight, L2-cold as K4's `ms_cold` (copies >= 2x the L2): a reference
+    that reads twice the weight bytes, not the same function; the port
+    never calls it."""
+    wbs = [(w.bfloat16() * ws.bfloat16())
+           for w in (w8s * 2)[:cold_copies(2 * w8s[0].numel())]]
+    xb = x.bfloat16()
+    ms = cuda_ms_cycled([lambda w=w: torch.matmul(xb, w) for w in wbs], 24)
+    return ms, ("torch.matmul(x.bfloat16(), bf16(w8) * bf16(ws)), L2-cold: "
+                "2x the weight bytes; a reference the port never calls")
 
 
 def kernel_phase_sd_modes(torch, dev, g, record):
@@ -937,9 +983,14 @@ def phase_a(torch, lm8, cfg, failures):
     rep["decode_step_ms_with_k6"] = [t for t, p in zip(times, order) if not p]
     rep["decode_step_ms_plain_decode"] = [t for t, p in zip(times, order) if p]
     refilled()
-    prof = device_profile(lambda: eng._run_chunk().numpy())
+    prof = device_profile(lambda: eng._run_chunk().numpy(), sums=("w8_",))
     rep["profile_one_chunk"] = prof
+    # the W8 matmul's (K4's) device time a decode step and its share of
+    # the chunk's device-busy time
+    rep["w8_us_per_step"] = prof["sum_us"]["w8_"] / eng.chunk
     if prof["busy_share"] is not None:
+        rep["w8_share_of_device_busy"] = prof["sum_us"]["w8_"] / max(
+            prof["busy_us"], 1e-9)
         # the profiler slows the host, so its own busy share reads low: set
         # the device time a step against the unprofiled step time as well
         steps_ms = sorted(rep["decode_step_ms_with_k6"])
@@ -1387,7 +1438,7 @@ def phase_e(torch, dev):
     from gill_tpu_torch.scripts import (attn_mxu_probe, attn_sweep,
                                         int8_probe, profile_ln_fuse,
                                         profile_prefix_decode, profile_sd,
-                                        profile_sd_ablate)
+                                        profile_sd_ablate, w8_probe)
 
     rows, failures, rep = [], [], {}
     t0 = time.perf_counter()
@@ -1407,7 +1458,8 @@ def phase_e(torch, dev):
               ("profile_ln_fuse", lambda: profile_ln_fuse.probe(
                   device="cuda", n1=1, n2=3, unet_reps=1)),
               ("profile_prefix_decode", lambda: profile_prefix_decode.probe(
-                  device="cuda", n_lo=2, n_hi=6))]
+                  device="cuda", n_lo=2, n_hi=6)),
+              ("w8_probe", lambda: w8_probe.probe(device="cuda", reps=12))]
     zero_launches()
     for name, run in probes:
         t0 = time.perf_counter()
@@ -1434,7 +1486,7 @@ def phase_e(torch, dev):
                                 f"bf16 ulps from K2's output")
         torch.cuda.empty_cache()
     rep["launches"] = launches = read_launches()
-    for name in ("mm_probe", "flash_variant", "flash_nomax"):
+    for name in ("mm_probe", "flash_variant", "flash_nomax", "w8_matmul"):
         if launches[name] <= 0:
             failures.append(f"{name} was not launched in phase E's probes")
     return rows, rep, failures
@@ -1484,6 +1536,21 @@ with torch.no_grad():
     t0 = time.perf_counter()
     sum(range(5_000_000))
     host_py_ms = 1e3 * (time.perf_counter() - t0)
+    # the tree's own W8 matmul at this script's W8_SHAPES (argv[3]), warm
+    # and cycling through weight copies >= 2x the L2
+    from gill_tpu_torch.ops.w8_matmul import w8_matmul
+    w8_ms = {}
+    for site, m, k, n, dt in json.loads(sys.argv[3]):
+        x = torch.randn(m, k, device=dev, generator=g).to(getattr(torch, dt))
+        ws8 = [torch.randint(-127, 128, (k, n), device=dev, generator=g,
+                             dtype=torch.int8)
+               for _ in range(me.cold_copies(k * n))]
+        ws = 1e-4 + 1e-3 * torch.rand(n, device=dev, generator=g)
+        w8_ms[site] = {
+            "ms": me.cuda_ms(lambda: w8_matmul(x, ws8[0], ws), 20),
+            "ms_cold": me.cuda_ms_cycled(
+                [lambda w=w: w8_matmul(x, w, ws) for w in ws8], 24)}
+        del ws8
 ph = rep["phases"]
 print("AB " + json.dumps({
     "request_a_s": rep["request_a_s"], "request_b_s": rep["request_b_s"],
@@ -1491,7 +1558,7 @@ print("AB " + json.dumps({
                                               "clip_vision", "vae_decode")},
     "unet_call_ms_min": min(unet_ms), "unet_call_ms_mean": sum(unet_ms) / 10,
     "unet_profiled": prof, "host_cpu_op_us": host_op_us,
-    "host_python_ms": host_py_ms, "failures": fails,
+    "host_python_ms": host_py_ms, "w8_matmul": w8_ms, "failures": fails,
     "ptxas_if_built_here": {n: [ln.split(":", 1)[-1].strip() for ln in
                                 txt.splitlines() if "registers" in ln]
                             for n, txt in _build.BUILD_LOG.items()}}))
@@ -1511,7 +1578,8 @@ def ab_main_path(other: str, rounds: int, order: str = "otto") -> int:
         for name, root in [{"o": ("other", other), "t": ("this", REPO)}[c]
                            for c in order]:
             run = subprocess.run([sys.executable, "-c", _AB_CHILD, root,
-                                  os.path.abspath(__file__)],
+                                  os.path.abspath(__file__),
+                                  json.dumps(W8_SHAPES)],
                                  cwd=root, capture_output=True, text=True)
             line = [ln for ln in run.stdout.splitlines()
                     if ln.startswith("AB ")]

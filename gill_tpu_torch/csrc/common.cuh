@@ -2,6 +2,8 @@
 // built by gill_tpu_torch/ops/_build.py with nvcc for sm_90a).
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,6 +87,83 @@ __device__ __forceinline__ void mma_bf16_k16(float* c, const unsigned* a,
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// TMA (K3's and K4's operand feeds): mbarriers, 2-D tensor copies into
+// shared memory, and the host-side tensor maps they read
+// ---------------------------------------------------------------------------
+
+// an mbarrier that completes a phase after `count` arrivals (and, with
+// mbar_expect, the bytes of the copies counted on it)
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
+}
+// one arrival that also expects `bytes` of copies on the current phase
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes) : "memory");
+}
+// one arrival (release: this thread's earlier reads of the guarded
+// buffer are done)
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nwait_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra wait_%=;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity) : "memory");
+}
+// one 2-D TMA box (x = innermost coordinate) into shared memory, counted
+// on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int x, int y,
+                                         unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(x), "r"(y),
+      "r"(smem_u32(bar)) : "memory");
+}
+
+// a 2-D tensor map over a row-major matrix of `rows` rows of `cols`
+// elements of `dtype`, rows `ld_bytes` apart (a multiple of 16), boxes of
+// box_rows x box_cols elements, zero-filled past the matrix's edges;
+// false if it cannot be made. cuTensorMapEncodeTiled is found through the
+// runtime's entry-point query (no -lcuda).
+static inline bool tensor_map_2d(CUtensorMap* map, CUtensorMapDataType dtype,
+                                 const void* base, unsigned long long rows,
+                                 unsigned long long cols,
+                                 unsigned long long ld_bytes,
+                                 unsigned box_rows, unsigned box_cols,
+                                 CUtensorMapSwizzle swizzle) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {ld_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, dtype, 2, const_cast<void*>(base), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // LayerNorm, in place, of `rows` resident bf16 rows of width D (row stride

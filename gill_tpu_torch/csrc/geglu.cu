@@ -53,8 +53,6 @@
 // blocks cannot fill the SMs, grid.y splits the chunks and `geglu_reduce`
 // sums the fp32 partials in a fixed order.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <mma.h>
 
 #include <initializer_list>
@@ -125,37 +123,6 @@ template <int NX> struct WgSmem {
   // + 1024 to align the ring to the 1024-byte swizzle atoms, + barriers
   static constexpr int BYTES = 1024 + WG_ST * STAGE + WG_ST * 8;
 };
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
-                                            unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nwait_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra wait_%=;\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity) : "memory");
-}
-// one 2-D TMA box (x = innermost coordinate) into shared memory, counted
-// on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int x, int y,
-                                         unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<unsigned long long>(map)), "r"(x), "r"(y),
-      "r"(smem_u32(bar)) : "memory");
-}
 
 // the activation tile of a stage as the wgmma B operand: 128-byte
 // swizzled K-major rows, 8-row atoms 1024 bytes apart; k16 step ks starts
@@ -576,25 +543,9 @@ cudaError_t launch_ln(const void* x, const void* ln_g, const void* ln_b,
 // (box_rows, 64) elements, 128-byte swizzled; false if it cannot be made
 bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols,
                 int box_rows) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      fn = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tensor_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rows,
+                       cols, 2ull * cols, box_rows, 64,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 cudaError_t launch_up_wg(const void* x, const void* w1, const void* b1,

@@ -9,16 +9,23 @@ an eager PyTorch call:
     after the device spins ~10 ms (`torch.cuda._sleep`) while the host
     queues them, so the host's launch overhead is not timed; `delta_ms`
     takes the delta between two values of n, as the scripts do;
+  * `cuda_ms_cycled`: the same, with the calls cycling through distinct
+    copies of their operands (`cold_copies` of them, >= 2x the L2 in all),
+    so that each call reads operands no recent call touched: the L2-cold
+    time of a call whose real caller streams a new operand each time (a
+    decode step's next layer);
   * `host_and_device_ms`: for a call the host cannot get ahead of (a full
     UNet call issues thousands of launches), the host-clock ms of a call
     and the device-busy ms from torch.profiler, two numbers under two
     names.
-On the CPU (the tests) `delta_ms` and `host_and_device_ms` read the host
-clock and report no device time.
+On the CPU (the tests) `delta_ms`, `cycled_ms` and `host_and_device_ms`
+read the host clock and report no device time.
 """
 
 from __future__ import annotations
 
+import itertools
+import math
 import subprocess
 import time
 
@@ -27,6 +34,8 @@ import torch
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
+# the L2 cache (NVIDIA H100 SXM data sheet)
+L2_BYTES = 50e6
 # exponentials a second on the special-function units (FlashAttention-3,
 # Shah et al. 2024: 3.9 TFLOPS of special functions on the H100 SXM5;
 # 16 a clock on each of 132 SMs at 1.83 GHz)
@@ -61,6 +70,37 @@ def cuda_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
     return _events_ms(fn, reps) / reps
+
+
+def cold_copies(nbytes: int) -> int:
+    """How many distinct copies of an operand of `nbytes` bytes hold >= 2x
+    the L2 in all (at least 2): cycling through them, every call finds its
+    copy out of the L2."""
+    return max(2, math.ceil(2 * L2_BYTES / nbytes))
+
+
+def cuda_ms_cycled(fns, reps: int) -> float:
+    """Mean device milliseconds a call over `reps` back-to-back calls (a
+    multiple of len(fns) is rounded up to) that cycle through `fns`, each
+    reading its own copy of the operands, after one warm-up call of each
+    (see `_events_ms`)."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    n = -(-reps // len(fns)) * len(fns)
+    it = itertools.cycle(fns)
+    return _events_ms(lambda: next(it)(), n) / n
+
+
+def cycled_ms(fns, device, reps: int) -> float:
+    """`cuda_ms_cycled` on CUDA; on the CPU the host-clock mean of `reps`
+    calls cycling through `fns`, after one warm-up call of each."""
+    if torch.device(device).type == "cuda":
+        return cuda_ms_cycled(fns, reps)
+    for fn in fns:
+        fn()
+    it = itertools.cycle(fns)
+    return _host_ms(lambda: next(it)(), reps) / reps
 
 
 def _events_ms(fn, n: int) -> float:
@@ -99,11 +139,13 @@ def delta_ms(fn, device, n1: int = 2, n2: int = 12) -> float:
     return max((t2 - t1) / (n2 - n1), 1e-6)
 
 
-def device_profile(fn, top: int = 8) -> dict:
+def device_profile(fn, top: int = 8, sums=()) -> dict:
     """torch.profiler's device trace of `fn`: the share of the device's
     active span (first kernel start to last kernel end) in which some
     kernel or copy ran (None when the trace holds no device events), the
-    number of device events, and the `top` kernels by device time (us)."""
+    number of device events, the `top` kernels by device time (us) and, for
+    each substring in `sums`, the device us of the events whose name holds
+    it (`sum_us`)."""
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -117,7 +159,8 @@ def device_profile(fn, top: int = 8) -> dict:
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     if not spans:
-        return {"busy_share": None, "device_events": 0, "top_us": {}}
+        return {"busy_share": None, "device_events": 0, "top_us": {},
+                "sum_us": {k: 0.0 for k in sums}}
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for a, b in spans[1:]:
         if a > cur_e:
@@ -132,7 +175,9 @@ def device_profile(fn, top: int = 8) -> dict:
     return {"busy_share": busy / max(cur_e - spans[0][0], 1e-9),
             "device_events": len(spans), "active_span_us":
             cur_e - spans[0][0], "busy_us": busy,
-            "top_us": dict(by_name.most_common(top))}
+            "top_us": dict(by_name.most_common(top)),
+            "sum_us": {k: sum(e.time_range.elapsed_us() for e in events
+                              if k in e.name) for k in sums}}
 
 
 def host_and_device_ms(fn, device, reps: int = 3):

@@ -12,7 +12,8 @@ value to bf16); bf16 GEGLU four ulps (the plain version rounds the
 projection and the gated product to bf16, the kernel keeps fp32 until the
 gated product); the W8 matmul two bf16 ulps of the largest output for bf16
 outputs and 1e-5 of it for fp32 outputs (fp32 sums in another order, one
-rounding); the decode attention the same per batch row, from that row's
+rounding), at every row tile, launch plan and serving shape, one launch a
+call and the same bits twice; the decode attention the same per batch row, from that row's
 own largest output (a row averages its valid cache rows of v, so long rows
 are far smaller than a parked row's own v1), and a parked row exactly v1.
 The LN-folded kernels (LN-matmul, stacked LN-matmul, LN-folded GEGLU) four
@@ -248,7 +249,8 @@ def _out_tol(ref):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("m,k,n", [(16, 4096, 4096), (8, 4096, 16384),
                                    (1, 16384, 4096), (100, 1024, 512),
-                                   (256, 512, 1536)])
+                                   (256, 512, 1536), (8, 1536, 2560),
+                                   (1, 1536, 2560)])
 def test_w8_matmul_kernel_matches_plain(cuda, m, k, n, dtype):
     dt = getattr(torch, dtype)
     g = torch.Generator(cuda).manual_seed(m + k + n)
@@ -294,6 +296,130 @@ def test_w8_matmul_kernel_refuses_what_it_does_not_take(cuda):
         w8.w8_matmul(x[:4, :384], w[:384], ws)       # K not a multiple of 512
     with pytest.raises(TypeError):
         w8.w8_matmul(x[:4].half(), w, ws)
+
+
+def _w8_operands(g, dev, m, k, n, dt, layers=None):
+    x = torch.randn(m, k, device=dev, generator=g).to(dt)
+    w = torch.randint(-127, 128, ((layers,) if layers else ()) + (k, n),
+                      device=dev, generator=g, dtype=torch.int8)
+    ws = 1e-4 + 1e-3 * torch.rand(n, device=dev, generator=g)
+    b = (0.1 * torch.randn(n, device=dev, generator=g)).to(dt)
+    return x, w, ws, b
+
+
+def _w8_close(got, x, w, ws, b):
+    want = w8.w8_matmul_ref(x, w, ws, b)
+    assert got.dtype == x.dtype and got.shape == want.shape
+    assert float((got.float() - want.float()).abs().max()) <= _out_tol(want)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 16, 17, 64, 255, 256])
+def test_w8_matmul_kernel_takes_every_row_count(cuda, m, dtype):
+    """Every row tile of `w8_plan` and its ragged edges, at the decode
+    shape 4096 x 4096."""
+    dt = getattr(torch, dtype)
+    x, w, ws, b = _w8_operands(torch.Generator(cuda).manual_seed(m), cuda,
+                               m, 4096, 4096, dt)
+    _w8_close(w8.w8_matmul(x, w, ws, b), x, w, ws, b)
+
+
+@pytest.mark.parametrize("dtype,m", [("bfloat16", 8), ("bfloat16", 16),
+                                     ("bfloat16", 100), ("float32", 1)])
+@pytest.mark.parametrize("block_k", [64, 128, 256])
+@pytest.mark.parametrize("block_n", [64, 128])
+def test_w8_matmul_kernel_takes_every_plan(cuda, block_n, block_k, dtype, m):
+    """Every (block_n, block_k) that `w8_plan` accepts at 4096 x 4096
+    launches once and is right; the rest raise ValueError on the card as
+    on the CPU."""
+    dt = getattr(torch, dtype)
+    x, w, ws, b = _w8_operands(torch.Generator(cuda).manual_seed(block_k),
+                               cuda, m, 4096, 4096, dt)
+    try:
+        w8.w8_plan(m, 4096, 4096, dt, block_n=block_n, block_k=block_k)
+    except ValueError:
+        with pytest.raises(ValueError):
+            w8.w8_matmul(x, w, ws, b, block_n=block_n, block_k=block_k)
+        return
+    before = w8.w8_matmul.launches
+    got = w8.w8_matmul(x, w, ws, b, block_n=block_n, block_k=block_k)
+    torch.cuda.synchronize()
+    assert w8.w8_matmul.launches == before + 1
+    _w8_close(got, x, w, ws, b)
+
+
+@pytest.mark.parametrize("m,k,n,dtype,splits", [
+    (1, 1536, 2560, "bfloat16", 3), (1, 2560, 512, "bfloat16", 5),
+    (1, 1536, 512, "bfloat16", 6), (1, 3584, 512, "bfloat16", 7),
+    (1, 1536, 3072, "float32", 3), (1, 2560, 512, "float32", 5),
+    (1, 1536, 512, "float32", 6), (1, 3584, 512, "float32", 7),
+    (1, 4096, 4096, "bfloat16", 2), (1, 4096, 512, "float32", 8)])
+def test_w8_matmul_kernel_takes_every_cluster_size(cuda, m, k, n, dtype,
+                                                   splits):
+    """K split over clusters of 2-8 blocks (so on the H100's 132 SMs),
+    also where the split does not divide the strip's columns (3, 5, 6,
+    7): every output column is summed and stored."""
+    dt = getattr(torch, dtype)
+    assert w8.w8_plan(m, k, n, dt, w8.H100_SMS).splits == splits
+    x, w, ws, b = _w8_operands(torch.Generator(cuda).manual_seed(k + n),
+                               cuda, m, k, n, dt)
+    _w8_close(w8.w8_matmul(x, w, ws, b), x, w, ws, b)
+
+
+def test_w8_matmul_stacked_takes_a_later_layer_at_decode_width(cuda):
+    """K5 at OPT-6.7B's width: layer 2 of a (3, 4096, 4096) stack, a view
+    whose start is 32 MiB into the stack."""
+    x, st, ws, b = _w8_operands(torch.Generator(cuda).manual_seed(6), cuda,
+                                16, 4096, 4096, torch.bfloat16, layers=3)
+    _w8_close(w8.w8_matmul_stacked(x, st, ws, b, 2), x, st[2], ws, b)
+
+
+W8_SERVING = [(16, 4096, 4096, "bfloat16"), (16, 4096, 16384, "bfloat16"),
+              (16, 16384, 4096, "bfloat16"), (8, 4096, 4096, "bfloat16"),
+              (256, 4096, 16384, "bfloat16"), (1, 16384, 4096, "float32")]
+
+
+@pytest.mark.parametrize("m,k,n,dtype", W8_SERVING)
+def test_w8_matmul_kernel_is_one_deterministic_launch(cuda, m, k, n, dtype):
+    """One kernel on the device a call (no reduction kernel, no memset),
+    and two calls on the same inputs agree bit for bit."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w, ws, b = _w8_operands(torch.Generator(cuda).manual_seed(k + n),
+                               cuda, m, k, n, getattr(torch, dtype))
+    first = w8.w8_matmul(x, w, ws, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again = w8.w8_matmul(x, w, ws, b)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "w8_" in kernels[0], kernels
+    assert torch.equal(first, again)
+    _w8_close(first, x, w, ws, b)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_w8_plan_is_the_c_sides(cuda, dtype):
+    """`w8_plan` and csrc/w8_matmul.cu's `plan_for` give the same geometry,
+    and refuse the same calls, over row counts, shapes and block sizes."""
+    dt = getattr(torch, dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for m in (1, 7, 8, 9, 16, 17, 64, 255, 256):
+        for k, n in ((512, 512), (4096, 4096), (4096, 16384), (16384, 4096),
+                     (1536, 2560), (512, 1536)):
+            for bn in (None, 32, 64, 128):
+                for bk in (None, 64, 128, 256, 512):
+                    try:
+                        p = w8.w8_plan(m, k, n, dt, sms, bn, bk)
+                        want = (p.block_n, p.block_k, p.stages, p.splits,
+                                p.row_tile, p.blocks)
+                    except ValueError:
+                        want = None
+                    assert w8.c_plan(m, k, n, dt, sms, bn, bk) == want, \
+                        (m, k, n, bn, bk)
 
 
 def _assert_rows_close(got, want, unit):

@@ -15,7 +15,7 @@ from gill_tpu_torch.config import tiny_unet_config
 from gill_tpu_torch.models.sd import unet as unet_mod
 from gill_tpu_torch.scripts import (attn_mxu_probe, attn_sweep, int8_probe,
                                     profile_ln_fuse, profile_prefix_decode,
-                                    profile_sd, profile_sd_ablate)
+                                    profile_sd, profile_sd_ablate, w8_probe)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = tiny_unet_config()
@@ -39,6 +39,7 @@ TINY = {
                                               unet_reps=1)),
     "profile_prefix_decode": (profile_prefix_decode, dict(
         configs=[("tiny", 4, 64, 2, 128)], n_lo=1, n_hi=2)),
+    "w8_probe": (w8_probe, dict(shapes=[(512, 512), (512, 1024)], reps=2)),
 }
 
 
@@ -151,6 +152,24 @@ def test_profile_prefix_decode_json_lines(capsys):
     for r in recs:
         assert list(r) == ["config", "mix", "plain_us", "kernel_us",
                            "speedup"]
+
+
+def test_w8_probe_rows_follow_the_original(capsys):
+    """The original's header and rows: the bf16 reference (2x bytes), then
+    the kernel at every (block_n, block_k) `w8_plan` accepts at M = 8 (K
+    512 takes stages of 128 and 256 rows), each with ms and GB/s."""
+    rc, lines = _run("w8_probe", capsys)
+    assert rc == 0
+    assert lines[0].startswith("# device: cpu")
+    assert lines[1].split() == ["shape", "config", "ms", "GB/s"]
+    rows = [ln for ln in lines[2:] if ln.strip()]
+    configs = ["bf16 matmul (2x bytes)", "K4 bn=64 bk=128", "K4 bn=64 bk=256",
+               "K4 bn=128 bk=128", "K4 bn=128 bk=256"]
+    assert [r.split()[0] for r in rows] == ["512x512"] * 5 + ["512x1024"] * 5
+    assert [" ".join(r.split()[1:-2]) for r in rows] == configs * 2
+    for r in rows:
+        ms, gbs = (float(v) for v in r.split()[-2:])
+        assert ms > 0 and gbs >= 0
 
 
 @pytest.mark.parametrize("name", sorted(TINY))
