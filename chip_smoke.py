@@ -66,8 +66,9 @@
 7. Probe scripts (slice 4), phase E: the probe kernels against their plain
    versions at the probes' full shapes (the repeated-product probe S1 at
    its seven cases, the sweep's flash variants S2 and S3 at B 8, S 4096,
-   H 8, D 40), then every probe of gill_tpu_torch/scripts/ once at its
-   default shapes with its repetitions cut, printing its rows (attn_mxu_
+   H 8, D 40, each row with its `variant_plan`, its ratio to SDPA and two
+   calls bit for bit), then every probe of gill_tpu_torch/scripts/ once at
+   its default shapes with its repetitions cut, printing its rows (attn_mxu_
    probe, attn_sweep, int8_probe, profile_sd, profile_sd_ablate,
    profile_ln_fuse, profile_prefix_decode, w8_probe); S1-S3 and K4 must
    launch there and no probe row may fail.
@@ -1408,7 +1409,10 @@ def probe_kernel_rows(torch, dev, record):
         else:
             ref = lambda: fv.flash_variant_ref(  # noqa: E731
                 q, k, v, block_k=bk, bf16_probs=probs == "bfloat16")
-        out, want = fn(q, k, v), ref()
+        mode = fv.NOMAX if nomax else fv.SINGLE if bk == s_ else fv.ONLINE
+        plan = fv.variant_plan(b_, s_, s_, h_, d_, mode, probs == "bfloat16",
+                               k_t, bq)
+        out, again, want = fn(q, k, v), fn(q, k, v), ref()
         torch.cuda.synchronize()
         err = float((out.float() - want.float()).abs().max())
         row = {"name": "flash_nomax" if nomax else "flash_variant",
@@ -1418,14 +1422,23 @@ def probe_kernel_rows(torch, dev, record):
                "shape": f"q/k/v({b_},{s_},{h_},{d_}) bfloat16, block_q {bq} "
                         f"block_k {bk}{' kt' if k_t else ''}",
                "hopper_tile": "x".join(map(str, fv.hopper_tile(bq))),
+               "plan": plan._asdict(),
                "ms": cuda_ms(lambda: fn(q, k, v), 5),
                "plain_ms": cuda_ms(ref, 3),
                "bound_ms": bms, "bound_by": by, "library_ms": sdpa_ms,
-               "library_computes": "exact bf16 attention (SDPA)"}
+               "library_computes": "exact bf16 attention (SDPA)",
+               "bitwise_equal_twice": bool(torch.equal(out, again))}
+        row["vs_library"] = row["ms"] / sdpa_ms
+        if k_t:   # the wrapper's (B*H, D, S) copy of k, inside `ms`
+            row["k_copy_ms"] = cuda_ms(
+                lambda: k.permute(0, 2, 3, 1).contiguous(), 5)
         # one fp32 quotient rounded to bf16 on both sides, sums in another
         # order: two bf16 ulps of the largest output, as for K1/K2
-        record(row, err, 2.0 * 2.0 ** -7 * float(want.float().abs().max()))
-        del out, want
+        tol = 2.0 * 2.0 ** -7 * float(want.float().abs().max())
+        record(row, err, tol, ok=err <= tol and row["bitwise_equal_twice"],
+               note=f"; {row['vs_library']:.2f}x SDPA; two calls bitwise "
+                    f"equal: {row['bitwise_equal_twice']}")
+        del out, again, want
         torch.cuda.empty_cache()
 
 

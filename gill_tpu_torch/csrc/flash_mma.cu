@@ -94,17 +94,9 @@ namespace {
 constexpr float LOG2E = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// PTX wrappers
+// PTX wrappers of the int8 stage (the bf16 ones are in common.cuh)
 // ---------------------------------------------------------------------------
 
-// m16n8k8 bf16 (16 bytes of depth)
-__device__ __forceinline__ void mma_bf16_k8(float* c, const unsigned* a,
-                                            unsigned b0) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(b0));
-}
 // m16n8k32 int8 (32 bytes of depth), int32 sums
 __device__ __forceinline__ void mma_s8_k32(int* c, const unsigned* a,
                                            unsigned b0, unsigned b1) {
@@ -120,12 +112,6 @@ __device__ __forceinline__ void mma_s8_k16(int* c, const unsigned* a,
       "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(b0));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // ---------------------------------------------------------------------------

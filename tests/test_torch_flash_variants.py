@@ -21,6 +21,7 @@ from jax.experimental import pallas as pl
 from test_torch_mm_probe import load_script
 
 from gill_tpu_torch.ops import flash_variants as fv
+from gill_tpu_torch.scripts import attn_sweep
 
 B, S, H, D = 1, 256, 2, 40
 
@@ -129,4 +130,78 @@ def test_head_dim_out_of_scope_raises(d):
 
 def test_hopper_tiles():
     assert [fv.hopper_tile(b) for b in (64, 256, 512, 1024)] == \
-        [(64, 64), (64, 64), (128, 64), (128, 128)]
+        [(64, 64), (64, 64), (128, 64), (64, 128)]
+
+
+def _mode(spec, s):
+    """(mode, block_q, bf16 probabilities, kt) of an attn_sweep.VARIANTS
+    entry at key length s."""
+    _, _, _, probs, kt, nomax = spec
+    _, bq, bk = attn_sweep.build(spec, s)
+    mode = fv.NOMAX if nomax else fv.SINGLE if bk == s else fv.ONLINE
+    return mode, bq, probs == "bfloat16", kt
+
+
+@pytest.mark.parametrize("shape", [attn_sweep.SHAPE, (B, S, H, D),
+                                   (2, 128, 3, 48), (1, 64, 1, 16)])
+@pytest.mark.parametrize("spec", attn_sweep.VARIANTS,
+                         ids=[v[0] for v in attn_sweep.VARIANTS])
+def test_variant_plan_launches_every_sweep_variant(spec, shape):
+    """At the sweep's shape and the tests' small ones: the tile of the
+    variant's block_q, Q K^T's depth as D / 16 k16 steps and a k8 step,
+    a two-stage ring, shared memory within the H100's 227 KB a block (and
+    within two blocks an SM), the grid covering every query row of every
+    (b, h) within the grid's limits."""
+    b, s, h, d = shape
+    mode, bq, bf16_probs, kt = _mode(spec, s)
+    p = fv.variant_plan(b, s, s, h, d, mode, bf16_probs, kt, bq)
+    assert (p.bq, p.bk) == fv.hopper_tile(bq)
+    assert 16 * p.k16 + 8 * p.k8 == d and p.stages == 2
+    assert 0 < 2 * p.smem <= fv.MAX_SMEM
+    assert p.grid == (-(-s // p.bq), b * h)
+    assert p.grid[0] * p.bq >= s and p.grid[1] <= fv.MAX_GRID_Y
+
+
+@pytest.mark.parametrize("kt", [False, True])
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 40, 48])
+def test_variant_plan_ends_in_k8_when_d_over_8_is_odd(d, kt):
+    """D 8, 24 and 40 are an odd number of 16-byte chunks: Q K^T ends in
+    one m16n8k8 step and nothing is zero-padded; the K tile holds D rows
+    with kt (keys contiguous), BK rows of D otherwise."""
+    p = fv.variant_plan(1, 1024, 256, 2, d, fv.SINGLE, False, kt, 1024)
+    assert p.k16 == d // 16 and p.k8 == ((d // 8) % 2 == 1)
+    nc = d // 8
+    odd = lambda n: n | 1  # noqa: E731
+    k_tile = d * odd(p.bk // 8) * 16 if kt else p.bk * odd(nc) * 16
+    v_slot = max(k_tile, p.bk * odd(nc) * 16)
+    assert p.smem == p.bq * odd(nc) * 16 + p.stages * (k_tile + v_slot)
+
+
+@pytest.mark.parametrize("t,s,d,block_q,block_k,mode,probs,kt", [
+    (256, 256, 44, 64, 256, fv.SINGLE, False, False),    # D not 8k
+    (256, 256, 56, 64, 256, fv.SINGLE, False, False),    # D past 48
+    (256, 256, 40, 96, 256, fv.SINGLE, False, False),    # T % block_q
+    (256, 256, 40, 0, 256, fv.SINGLE, False, False),
+    (256, 256, 40, 64, 256, fv.NOMAX, True, False),      # S3: fp32 only
+    (256, 256, 40, 64, 256, fv.NOMAX, False, True),      # S3: no kt
+    (256, 252, 40, 64, 252, fv.SINGLE, False, True),     # kt: S % 8
+    (256, 256, 40, 64, 256, 3, False, False)])           # no such mode
+def test_variant_plan_refuses_what_the_kernel_does_not_take(
+        t, s, d, block_q, block_k, mode, probs, kt):
+    """Every call `_check` or the launch refuses, the plan refuses too (so
+    the C side, which checks the plan, never sees it)."""
+    with pytest.raises(ValueError):
+        fv.variant_plan(1, t, s, 2, d, mode, probs, kt, block_q)
+    x = torch.zeros(1, t, 2, d, dtype=torch.bfloat16)
+    y = torch.zeros(1, s, 2, d, dtype=torch.bfloat16)
+    if mode == fv.SINGLE and not kt:
+        with pytest.raises(ValueError):
+            fv.flash_variant(x, y, y, block_q=block_q, block_k=block_k)
+
+
+def test_variant_plan_refuses_too_many_heads():
+    with pytest.raises(ValueError):
+        fv.variant_plan(2, 64, 64, fv.MAX_GRID_Y, 40, fv.ONLINE, False,
+                        False, 64)
+    assert fv.variant_plan(1, 64, 64, fv.MAX_GRID_Y, 40, fv.ONLINE, False,
+                           False, 64).grid == (1, fv.MAX_GRID_Y)

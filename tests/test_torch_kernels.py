@@ -29,7 +29,10 @@ same 1e-4 / two bf16 ulps at each of its main-path shapes, ragged and
 causal calls, `kv_len` and fused views. The probe kernels: the repeated-product
 probe (S1) int8 exactly equal and bf16 within 1e-5 of the largest output,
 relative (fp32 sums in another order); the sweep's flash variants (S2, S3)
-two bf16 ulps of the largest output, as flash attention.
+two bf16 ulps of the largest output, as flash attention, two calls bit
+for bit, and the bf16-probability single-pass mode at wide scores within
+a quarter of the gap between the plain versions with bf16 and fp32
+probabilities.
 """
 
 import pytest
@@ -778,6 +781,132 @@ def test_flash_variant_kernel_refuses_what_it_does_not_take(cuda):
     off = off[1:].view(1, 128, 2, 40)
     with pytest.raises(ValueError):
         fv.flash_variant(off, q, q, block_q=64, block_k=128)
+
+
+# (name, single-pass, bf16 probabilities, kt, no-max): every mode of
+# csrc/flash_variants.cu
+FV_MODES = [("single", True, False, False, False),
+            ("online", False, False, False, False),
+            ("single_bf16", True, True, False, False),
+            ("online_bf16", False, True, False, False),
+            ("single_kt", True, False, True, False),
+            ("online_kt", False, False, True, False),
+            ("nomax", True, False, False, True)]
+
+
+def _fv_call(q, k, v, block_q, single, bf16, kt, nomax):
+    """(kernel call, plain version) of one mode; online takes block_k =
+    S / 2."""
+    s = k.shape[1]
+    bk = s if single else s // 2
+    if nomax:
+        return (lambda: fv.flash_nomax(q, k, v, block_q=block_q, block_k=s),
+                lambda: fv.flash_nomax_ref(q, k, v))
+    pd = torch.bfloat16 if bf16 else torch.float32
+    return (lambda: fv.flash_variant(q, k, v, block_q=block_q, block_k=bk,
+                                     prob_dtype=pd, kt=kt),
+            lambda: fv.flash_variant_ref(q, k, v, block_k=bk,
+                                         bf16_probs=bf16))
+
+
+@pytest.mark.parametrize("t,s,d,block_q", [
+    (96, 320, 24, 32), (96, 320, 40, 96),          # T ragged on 64 rows
+    (320, 320, 24, 320), (320, 320, 40, 320),      # T ragged on 128 rows
+    (1024, 320, 24, 1024), (1024, 320, 40, 1024)])  # S ragged on 128 keys
+@pytest.mark.parametrize("mode", FV_MODES, ids=[m[0] for m in FV_MODES])
+def test_flash_variant_kernel_ragged_shapes(cuda, t, s, d, block_q, mode):
+    """D 24 and 40 (k16 steps and a k8 tail) at T off the tile's rows and S
+    off its keys, in every mode: two bf16 ulps of the plain version."""
+    g = torch.Generator(cuda).manual_seed(t + s + d)
+    q, k, v = (torch.randn(1, n, 2, d, device=cuda, generator=g)
+               .to(torch.bfloat16) for n in (t, s, s))
+    run, ref = _fv_call(q, k, v, block_q, *mode[1:])
+    got = run()
+    torch.cuda.synchronize()
+    assert _ulps(got, ref(), 2)
+
+
+@pytest.mark.parametrize("mode", FV_MODES, ids=[m[0] for m in FV_MODES])
+def test_flash_variant_kernel_one_launch_and_the_same_bits(cuda, mode):
+    """Each mode: one launch a call on its own counter (flash_variant or
+    flash_nomax, the other unmoved) and two calls bit-equal."""
+    g = torch.Generator(cuda).manual_seed(17)
+    q, k, v = (torch.randn(2, 512, 3, 40, device=cuda, generator=g)
+               .to(torch.bfloat16) for _ in range(3))
+    run, _ = _fv_call(q, k, v, 512, *mode[1:])
+    own, other = ((fv.flash_nomax, fv.flash_variant) if mode[4]
+                  else (fv.flash_variant, fv.flash_nomax))
+    n_own, n_other = own.launches, other.launches
+    a = run()
+    b = run()
+    torch.cuda.synchronize()
+    assert own.launches == n_own + 2 and other.launches == n_other
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("block_k", [256, 128])
+def test_flash_variant_kernel_bf16_probabilities_at_wide_scores(cuda,
+                                                                block_k):
+    """q scaled by 4 spreads the scores so that rounding s - m to bf16
+    moves p: the plain versions with bf16 and fp32 probabilities then
+    differ, and single-pass, whose max is the plain version's, must sit far
+    closer to the bf16 one (the variant is its rounding point); online
+    rescales at other keys than the plain version, so it is held to two
+    ulps only."""
+    g = torch.Generator(cuda).manual_seed(9)
+    q, k, v = (torch.randn(2, 256, 2, 40, device=cuda, generator=g)
+               for _ in range(3))
+    q, k, v = ((4 * q).to(torch.bfloat16), k.to(torch.bfloat16),
+               v.to(torch.bfloat16))
+    got = fv.flash_variant(q, k, v, block_q=256, block_k=block_k,
+                           prob_dtype=torch.bfloat16)
+    want = fv.flash_variant_ref(q, k, v, block_k=block_k, bf16_probs=True)
+    torch.cuda.synchronize()
+    assert _ulps(got, want, 2)
+    if block_k == 256:
+        fp32 = fv.flash_variant_ref(q, k, v, block_k=block_k)
+        apart = float((fp32.float() - want.float()).abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        assert apart > 0 and err <= apart / 4, (err, apart)
+
+
+def test_flash_variant_plans_agree_with_the_c_side(cuda):
+    """The C side's plan is `variant_plan` at every sweep variant and at
+    small shapes, and both refuse the same calls."""
+    from gill_tpu_torch.scripts import attn_sweep
+
+    for shape in (attn_sweep.SHAPE, (1, 1024, 2, 24), (2, 2048, 3, 48)):
+        b, s, h, d = shape
+        for spec in attn_sweep.VARIANTS:
+            _, bq, bk = attn_sweep.build(spec, s)
+            mode = (fv.NOMAX if spec[5] else fv.SINGLE if bk == s
+                    else fv.ONLINE)
+            args = (b, s, s, h, d, mode, spec[3] == "bfloat16", spec[4], bq)
+            assert fv.c_plan(*args) == fv.variant_plan(*args)
+    for args in [(1, 256, 256, 2, 44, fv.SINGLE, False, False, 64),
+                 (1, 256, 256, 2, 40, fv.SINGLE, False, False, 96),
+                 (1, 256, 256, 2, 40, fv.NOMAX, True, False, 64),
+                 (1, 256, 252, 2, 40, fv.SINGLE, False, True, 64)]:
+        with pytest.raises(ValueError):
+            fv.variant_plan(*args)
+        assert fv.c_plan(*args) is None
+
+
+@pytest.mark.parametrize("field,value", [("bq", 128), ("bk", 128),
+                                         ("stages", 3), ("smem", 1024)])
+def test_flash_variant_kernel_refuses_another_plan(cuda, monkeypatch, field,
+                                                   value):
+    """The entry point launches only the geometry of `variant_plan`: a
+    plan with one field changed is refused (an error at launch), and
+    nothing is counted."""
+    q = torch.zeros(1, 256, 2, 40, device=cuda, dtype=torch.bfloat16)
+    plan = fv.variant_plan(1, 256, 256, 2, 40, fv.SINGLE, False, False, 256)
+    monkeypatch.setattr(fv, "variant_plan",
+                        lambda *a: plan._replace(**{field: value}))
+    before = fv.flash_variant.launches
+    with pytest.raises(RuntimeError):
+        fv.flash_variant(q, q, q, block_q=256, block_k=256)
+    assert fv.flash_variant.launches == before
 
 
 def _k1_tol(want):
