@@ -14,8 +14,10 @@
    could take (the largest of bytes over 3.35 TB/s, operations over the
    peak rate of their type and, for attention, exponentials over the
    special-function units' ~3.9e12/s) and, where one PyTorch call computes
-   the same function, that call's time. Each attention and GEGLU row names
-   its launch plan (`flash_plan`, `geglu_plan`, `w8_plan`). The W8 matmul
+   the same function, that call's time. Each attention, GEGLU and
+   LN-matmul row names its launch plan (`flash_plan`, `geglu_plan`,
+   `w8_plan`, `ln_matmul_plan`); the LN-folded kernels (K7-K9) must also
+   give the same bits in two calls. The W8 matmul
    (K4) is also timed L2-cold (`ms_cold`: its calls cycle through copies
    of the weight, >= 2x the L2 in all, as a decode step reads each layer's
    weights from device memory; its bound is set against that time) beside
@@ -471,12 +473,23 @@ def kernel_phase_sd_modes(torch, dev, g, record):
     from gill_tpu_torch.ops.attention import (flash_attention_q8,
                                               flash_attention_q8_ref,
                                               mma_tile, quantize_qk)
-    from gill_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ref
-    from gill_tpu_torch.ops.ln_matmul import (ln_matmul, ln_matmul_ref,
+    from gill_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ref, geglu_plan
+    from gill_tpu_torch.ops.ln_matmul import (ln_matmul, ln_matmul_plan,
+                                              ln_matmul_ref,
                                               ln_matmul_stacked,
                                               ln_matmul_stacked_ref)
 
     bf = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def record_twice(row, out, again, want):
+        """Four ulps of the largest output, and two calls bit for bit."""
+        err = float((out.float() - want.float()).abs().max())
+        tol = geglu_tol(want.float())
+        row["bitwise_equal_twice"] = bool(torch.equal(out, again))
+        record(row, err, tol, ok=err <= tol and row["bitwise_equal_twice"],
+               note=f"; two calls bitwise equal: "
+                    f"{row['bitwise_equal_twice']}")
 
     def ln_params(d):
         return ((1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(bf),
@@ -495,18 +508,19 @@ def kernel_phase_sd_modes(torch, dev, g, record):
                  lambda: ln_matmul_stacked(x, ga, be, w),
                  lambda: ln_matmul_stacked_ref(x, ga, be, w), LN_SRC,
                  LN3_REPLACES)):
-            out, want = fn(), ref()
+            out, again, want = fn(), fn(), ref()
             torch.cuda.synchronize()
-            err = float((out.float() - want.float()).abs().max())
             bms, by = bound((m * d + 2 * d + kk * d * d + kk * m * d) * 2,
                             2.0 * kk * m * d * d, "bf16")
+            plan = ln_matmul_plan(m, d, d, kk, sms)
             row = {"name": name, "site": site, "route": "cuda",
                    "source": src, "replaces": rep,
                    "shape": f"x({m},{d}) w({kk},{d},{d}) bfloat16",
+                   "plan": {**plan._asdict(), "blocks": plan.blocks},
                    "ms": cuda_ms(fn, 20),
                    "plain_ms": cuda_ms(ref, 20),
                    "bound_ms": bms, "bound_by": by, "library_ms": None}
-            record(row, err, geglu_tol(want.float()))
+            record_twice(row, out, again, want)
     for site, m, d in GEGLU_SHAPES:
         x = (2 * torch.randn(m, d, device=dev, generator=g) - 0.2).to(bf)
         ga, be = ln_params(d)
@@ -518,20 +532,21 @@ def kernel_phase_sd_modes(torch, dev, g, record):
         b2 = (0.1 * torch.randn(d, device=dev, generator=g)).to(bf)
         ln = dict(ln_gamma=ga, ln_beta=be)
         out = geglu_ff(x, w1, b1, w2, b2, **ln)
+        again = geglu_ff(x, w1, b1, w2, b2, **ln)
         want = geglu_ff_ref(x, w1, b1, w2, b2, **ln)
         torch.cuda.synchronize()
-        err = float((out.float() - want.float()).abs().max())
         bms, by = bound((2 * m * d + 12 * d * d + 11 * d) * 2,
                         24.0 * m * d * d, "bf16")
         row = {"name": "geglu_ff_ln", "site": site, "route": "cuda",
                "source": GEGLU_SRC, "replaces": GEGLU_LN_REPLACES,
                "shape": f"x({m},{d}) bfloat16, LayerNorm folded",
+               "plan": geglu_plan(m, d, sms)._asdict(),
                "ms": cuda_ms(lambda: geglu_ff(x, w1, b1, w2, b2,
                                                      **ln), 20),
                "plain_ms": cuda_ms(lambda: geglu_ff_ref(
                    x, w1, b1, w2, b2, **ln), 20),
                "bound_ms": bms, "bound_by": by, "library_ms": None}
-        record(row, err, geglu_tol(want.float()))
+        record_twice(row, out, again, want)
     for site, b, t, s, h, d in Q8_SHAPES:
         q, k, v = (torch.randn(b, n, h, d, device=dev, generator=g).to(bf)
                    for n in (t, s, s))

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by nvcc
 for Hopper (`-gencode arch=compute_90a,code=sm_90a`) into
-`csrc/build/lib<name>-<source hash>.so` (a directory .gitignore lists), so
-a changed source never reuses a stale library. `build_all()` starts one
+`csrc/build/lib<name>-<hash>.so` (a directory .gitignore lists), the hash
+taken over the source and every `csrc/*.cuh`, so a changed source or
+header never reuses a stale library. `build_all()` starts one
 nvcc per source at once and waits for all of them. A failed build RAISES
 with the compiler's output: there is no fallback to a plain version.
 """
@@ -44,7 +45,8 @@ def _nvcc() -> str:
 def _lib_path(name: str) -> Tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
     h = hashlib.sha256()
-    for path in (src, os.path.join(CSRC, "common.cuh")):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -12,11 +12,12 @@ tiles cannot fill the card.
 
 With `ln_gamma`/`ln_beta` (GILL_SD_FUSE_LN=1) x is the raw residual stream
 and the block's third LayerNorm is folded in, as gill_tpu's Pallas
-`_kernel_ln` folds it: one fused kernel normalizes its resident x tile with
-`ln_matmul.ln_rows`' rounding points before the first product, so the
-normalized tensor never exists in device memory, its inner dimension split
-as `geglu_ln_splits` says. The kernel's gelu stays the exact erf form,
-where `_kernel_ln` takes the tanh form only because Mosaic lacks erf.
+`_kernel_ln` folds it (K9): a pre-pass writes each row's (mean, inv), and
+the first GEMM normalizes each x tile on the SM with `ln_matmul.ln_rows`'
+rounding points before its tensor cores read it, so the normalized tensor
+never exists in device memory; the launches follow the same `geglu_plan`.
+The kernel's gelu stays the exact erf form, where `_kernel_ln` takes the
+tanh form only because Mosaic lacks erf.
 """
 
 from __future__ import annotations
@@ -33,11 +34,11 @@ DEPTH_TILE = 64          # the depth of K3's staged tiles
 
 
 class GegluPlan(NamedTuple):
-    """K3's launches for x (m, d), 128 rows a block: `geglu_up_wg` at 64
-    columns of h a block (`up_blocks` blocks), then `geglu_down_wg` at
-    `down_bn` columns (`down_tiles` output tiles), its depth split `splits`
-    ways (a float32 (splits, m, d) workspace and a fixed-order sum when
-    above 1)."""
+    """K3's launches for x (m, d), and K9's after its row statistics, 128
+    rows a block: `geglu_up_wg` at 64 columns of h a block (`up_blocks`
+    blocks), then `geglu_down_wg` at `down_bn` columns (`down_tiles` output
+    tiles), its depth split `splits` ways (a float32 (splits, m, d)
+    workspace and a fixed-order sum when above 1)."""
     up_blocks: int
     down_bn: int
     down_tiles: int
@@ -69,17 +70,6 @@ def geglu_plan(m: int, d: int, sms: int = H100_SMS) -> GegluPlan:
     return GegluPlan(rows * (4 * d // 64), down_bn, tiles, splits)
 
 
-def geglu_ln_splits(m: int, d: int, sms: int = H100_SMS) -> int:
-    """K9's inner-dimension splits for (m, d): its fused kernel owns
-    20480 / d rows a block, and when those blocks are fewer than `sms` the
-    64-column chunks of the inner dimension are split sms // blocks ways
-    (at most 4d / 64); the caller allocates a float32 (splits, m, d)
-    workspace when above 1."""
-    _check_dim(d)
-    blocks = -(-m // (20480 // d))
-    return max(1, min(sms // max(blocks, 1), 4 * d // 64))
-
-
 def geglu_ff_ref(x, w1, b1, w2, b2, *, ln_gamma=None, ln_beta=None,
                  ln_eps: float = 1e-5):
     """Composed GEGLU FF in x's dtype (gill_tpu `unet._geglu_ff` off-TPU):
@@ -100,11 +90,9 @@ def _geglu_lib():
     lib = _build.load("geglu")
     if lib.gill_geglu_ff.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gill_geglu_ff.argtypes = [p] * 8 + [i] * 4 + [p]
+        lib.gill_geglu_ff.argtypes = [p] * 11 + [ctypes.c_float] + [i] * 4 \
+            + [p]
         lib.gill_geglu_ff.restype = i
-        lib.gill_geglu_ff_ln.argtypes = [p, p, p, ctypes.c_float,
-                                         p, p, p, p, p, p, i, i, i, p]
-        lib.gill_geglu_ff_ln.restype = i
     return lib
 
 
@@ -116,12 +104,40 @@ def _aligned(t):
     return t
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(lib, x2, w1, b1, w2, b2, ln, ln_eps: float, sms: int, stream):
+    """K3 (ln None) or K9 (ln = (gamma, beta)) on x2 (m, d), m >= 1, at
+    `geglu_plan(m, d, sms)`: allocates out, the (m, 4d) intermediate, a
+    split's float32 workspace and K9's float32 (m, 2) row statistics, and
+    launches through `lib.gill_geglu_ff`. Returns out."""
+    from gill_tpu_torch.ops._build import check
+
+    m, d = x2.shape
+    plan = geglu_plan(m, d, sms)
+    out = torch.empty_like(x2)
+    h = torch.empty((m, 4 * d), device=x2.device, dtype=torch.bfloat16)
+    f32 = dict(device=x2.device, dtype=torch.float32)
+    ws = torch.empty((plan.splits, m, d), **f32) if plan.splits > 1 else None
+    gamma, beta = ln if ln is not None else (None, None)
+    stats = None if ln is None else torch.empty((m, 2), **f32)
+    err = lib.gill_geglu_ff(
+        *(_ptr(t) for t in (x2, w1, b1, w2, b2, h, out, ws, gamma, beta,
+                            stats)),
+        float(ln_eps), m, d, plan.down_bn, plan.splits, stream)
+    check(err, "geglu_ff" if ln is None else "geglu_ff(ln)")
+    return out
+
+
 def geglu_ff(x, w1, b1, w2, b2, *, ln_gamma=None, ln_beta=None,
              ln_eps: float = 1e-5):
     """x (..., d) -> (..., d). Replaces gill_tpu `geglu_ff` (Pallas
     `_kernel`: K3, the two GEMMs of `geglu_plan`) and, with
-    ln_gamma/ln_beta, `_kernel_ln` (K9, one fused kernel). Each counts one
-    launch a call on its own attribute (`geglu_ff.launches`,
+    ln_gamma/ln_beta, `_kernel_ln` (K9: the row statistics, then the same
+    GEMMs with the LayerNorm applied to each x tile on the SM). Each counts
+    one launch a call on its own attribute (`geglu_ff.launches`,
     `geglu_ff.ln_launches`)."""
     if not x.is_cuda:
         return geglu_ff_ref(x, w1, b1, w2, b2, ln_gamma=ln_gamma,
@@ -143,35 +159,15 @@ def geglu_ff(x, w1, b1, w2, b2, *, ln_gamma=None, ln_beta=None,
         raise ValueError("geglu_ff tensors must share one device")
     x2, w1, b1, w2, b2 = (_aligned(t) for t in (x.reshape(-1, d), w1, b1,
                                                  w2, b2))
-    m = x2.shape[0]
-    out = torch.empty_like(x2)
-    if not m:
-        return out.reshape(x.shape)
-    from gill_tpu_torch.ops._build import check
-
-    lib = _geglu_lib()
+    if not x2.shape[0]:
+        return torch.empty_like(x)
+    ln = (_aligned(ln_gamma), _aligned(ln_beta)) if fold_ln else None
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    plan = None if fold_ln else geglu_plan(m, d, sms)
-    splits = geglu_ln_splits(m, d, sms) if fold_ln else plan.splits
-    ws = (torch.empty((splits, m, d), device=x.device, dtype=torch.float32)
-          if splits > 1 else None)
-    ws_ptr = None if ws is None else ws.data_ptr()
+    out = _launch(_geglu_lib(), x2, w1, b1, w2, b2, ln, ln_eps, sms, stream)
     if fold_ln:
-        g, b = _aligned(ln_gamma), _aligned(ln_beta)
-        err = lib.gill_geglu_ff_ln(
-            x2.data_ptr(), g.data_ptr(), b.data_ptr(), float(ln_eps),
-            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            out.data_ptr(), ws_ptr, m, d, splits, stream)
-        check(err, "geglu_ff(ln)")
         geglu_ff.ln_launches += 1
     else:
-        h = torch.empty((m, 4 * d), device=x.device, dtype=torch.bfloat16)
-        err = lib.gill_geglu_ff(
-            x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), h.data_ptr(), out.data_ptr(), ws_ptr, m, d,
-            plan.down_bn, splits, stream)
-        check(err, "geglu_ff")
         geglu_ff.launches += 1
     return out.reshape(x.shape)
 

@@ -15,19 +15,70 @@ in x's dtype. (nn.core.layer_norm squares in x's dtype instead; the two
 agree in fp32.)
 
 CUDA tensors launch csrc/ln_matmul.cu (bf16, d in {320, 640}, n a multiple
-of 64, K <= 3) or raise; CPU tensors take the plain versions.
+of 64, K <= 3) or raise; CPU tensors take the plain versions. The kernel is
+K3's tensor-core GEMM (csrc/wg_gemm.cuh) after a pass that writes each
+row's (mean, inv): each x tile is normalized on the SM before the product
+reads it, and `ln_matmul_plan` sets how many 64-column weight boxes a
+block takes.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from gill_tpu_torch.ops.geglu import _aligned
+from gill_tpu_torch.ops.geglu import H100_SMS, _aligned
 
 SUPPORTED_DIMS = (320, 640)
 MAX_STACK = 3
+# (rows, weight boxes) a block, in the order the plan tries them
+TILES = ((128, 2), (64, 2), (128, 1), (64, 1))
+
+
+class LnMatmulPlan(NamedTuple):
+    """The launch of `ln_matmul_wg` for x (m, d), ws (k, d, n): the k n / 64
+    weight boxes of 64 columns (`boxes`), `nx` of them a block, in a grid
+    of `col_blocks` x `row_blocks` blocks of `bm` rows."""
+    bm: int
+    nx: int
+    boxes: int
+    col_blocks: int
+    row_blocks: int
+
+    @property
+    def blocks(self) -> int:
+        return self.col_blocks * self.row_blocks
+
+
+def ln_matmul_plan(m: int, d: int, n: int, k: int,
+                   sms: int = H100_SMS) -> LnMatmulPlan:
+    """The launch on a card with `sms` SMs: the first (bm, nx) of TILES
+    that makes at least `sms` blocks, else (64, 1), the most blocks the
+    call can have. Two boxes a block normalize each x tile once for both
+    (with an odd box count the last block's second box repeats its first
+    and is not stored), and 128 rows a block read each weight box half as
+    often as 64; but a block's depth loop is a chain of d / 64 dependent
+    steps (wait for the tile, normalize it, multiply), so an SM without a
+    block costs more than either. At the UNet's shapes: K7 (128, 2) at
+    (m, d) (8192, 320), 192 blocks, and (64, 2) at (2048, 640), 160; K8
+    (128, 2), 512 and 240 blocks. A short m fills the card only with many
+    boxes: at m 77 (two blocks of 64 rows) k 3 and n 320 give 30.
+    csrc/ln_matmul.cu's `plan_for` must agree. Raises ValueError for d
+    outside SUPPORTED_DIMS, n not a positive multiple of 64, k outside
+    [1, MAX_STACK] or m < 1."""
+    if d not in SUPPORTED_DIMS or n < 64 or n % 64 or not 1 <= k <= MAX_STACK \
+            or m < 1:
+        raise ValueError(f"ln_matmul kernel takes d in {SUPPORTED_DIMS}, n a "
+                         f"multiple of 64, 1 <= k <= {MAX_STACK} and m >= 1; "
+                         f"got m {m}, d {d}, n {n}, k {k}")
+    boxes = k * n // 64
+    for bm, nx in TILES:
+        plan = LnMatmulPlan(bm, nx, boxes, -(-boxes // nx), -(-m // bm))
+        if (nx == 1 or boxes > 1) and plan.blocks >= sms:
+            break
+    return plan
 
 
 def ln_rows(x, gamma, beta, eps: float = 1e-5):
@@ -58,16 +109,45 @@ def _lib():
     from gill_tpu_torch.ops import _build
 
     lib = _build.load("ln_matmul")
-    fn = lib.gill_ln_matmul
-    if fn.argtypes is None:
+    if lib.gill_ln_matmul.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
-        fn.restype = i
-    return fn
+        lib.gill_ln_matmul.argtypes = [p] * 6 + [i] * 7 + [ctypes.c_float, p]
+        lib.gill_ln_matmul.restype = i
+        lib.gill_ln_matmul_plan.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+        lib.gill_ln_matmul_plan.restype = i
+    return lib
+
+
+def c_plan(m: int, d: int, n: int, k: int, sms: int = H100_SMS):
+    """The `LnMatmulPlan` csrc/ln_matmul.cu makes for the call, or None
+    where it refuses it (builds the library)."""
+    out = (ctypes.c_int * 5)()
+    if _lib().gill_ln_matmul_plan(m, d, n, k, sms, out):
+        return None
+    return LnMatmulPlan(*out)
+
+
+def _run(lib, x2, gamma, beta, ws, eps: float, sms: int, stream, what: str):
+    """x2 (m, d), m >= 1, ws (K, d, n) -> (K, m, n): allocates out and the
+    float32 (m, 2) row statistics and launches `lib.gill_ln_matmul` at
+    `ln_matmul_plan(m, d, n, K, sms)`."""
+    from gill_tpu_torch.ops._build import check
+
+    m, d = x2.shape
+    kk, _, n = ws.shape
+    plan = ln_matmul_plan(m, d, n, kk, sms)
+    out = torch.empty((kk, m, n), device=x2.device, dtype=x2.dtype)
+    stats = torch.empty((m, 2), device=x2.device, dtype=torch.float32)
+    err = lib.gill_ln_matmul(
+        *(t.data_ptr() for t in (x2, gamma, beta, ws, out, stats)),
+        m, d, n, kk, plan.bm, plan.nx, sms, float(eps), stream)
+    check(err, what)
+    return out
 
 
 def _launch(x, gamma, beta, ws, eps: float, what: str):
-    """ws (K, d, n) -> (K, M, n) on the card: the checks, then one launch."""
+    """ws (K, d, n) -> (K, M, n) on the card: the checks, then the
+    launches."""
     d = x.shape[-1]
     kk, wd, n = ws.shape
     if d not in SUPPORTED_DIMS:
@@ -84,17 +164,11 @@ def _launch(x, gamma, beta, ws, eps: float, what: str):
         raise ValueError(f"{what} tensors must share one device")
     x2, gamma, beta, ws = (_aligned(t) for t in (x.reshape(-1, d), gamma,
                                                   beta, ws))
-    m = x2.shape[0]
-    out = torch.empty((kk, m, n), device=x.device, dtype=x.dtype)
-    if m:
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib()(x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                     ws.data_ptr(), out.data_ptr(), m, d, n, kk, float(eps),
-                     stream)
-        from gill_tpu_torch.ops._build import check
-
-        check(err, what)
-    return out
+    if not x2.shape[0]:
+        return torch.empty((kk, 0, n), device=x.device, dtype=x.dtype)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    return _run(_lib(), x2, gamma, beta, ws, eps, sms, stream, what)
 
 
 def ln_matmul(x, gamma, beta, w, *, eps: float = 1e-5):

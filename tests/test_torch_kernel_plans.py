@@ -2,7 +2,9 @@
 Pallas kernels of gill_tpu in interpret mode at the head dims and row
 counts the redesigned kernels take (flash attention at head dims 160 and
 512, the GEGLU feed-forward at a ragged row count), and the launch plans
-(`flash_plan`, `geglu_plan`, `geglu_ln_splits`) the CUDA wrappers follow.
+(`flash_plan`, `geglu_plan`, `ln_matmul_plan`) the CUDA wrappers follow,
+with the arguments and scratch tensors the K3/K9 and K7/K8 wrappers hand
+their C entry points (a stand-in library records them).
 The kernels themselves are held to these plain versions on a card in
 test_torch_kernels.py.
 
@@ -23,6 +25,7 @@ from gill_tpu.ops import attention as jattn
 from gill_tpu.ops.geglu import geglu_ff as pallas_geglu_ff
 from gill_tpu_torch.ops import attention as tattn
 from gill_tpu_torch.ops import geglu as tgeglu
+from gill_tpu_torch.ops import ln_matmul as tlnm
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -186,18 +189,124 @@ def test_geglu_plan_up_gemm_fills_the_card_at_the_ops_bound_shapes():
         assert tgeglu.geglu_plan(m, d).up_blocks >= 132
 
 
-@pytest.mark.parametrize("m,d,want", [(8192, 320, 1), (2048, 640, 2),
-                                      (512, 1280, 4), (128, 1280, 16),
-                                      (1, 1280, 80), (77, 320, 20)])
-def test_geglu_ln_splits(m, d, want):
-    """K9's inner-dimension splits: SMs // (rows / (20480 / d)) blocks,
-    between 1 and the 4d / 64 chunks."""
-    assert tgeglu.geglu_ln_splits(m, d) == want
-
-
 @pytest.mark.parametrize("fn,args", [
-    (tgeglu.geglu_plan, (512, 1024)), (tgeglu.geglu_plan, (0, 320)),
-    (tgeglu.geglu_ln_splits, (512, 768))])
+    (tgeglu.geglu_plan, (512, 1024)), (tgeglu.geglu_plan, (0, 320))])
 def test_geglu_plans_refuse_what_the_kernels_do_not_take(fn, args):
     with pytest.raises(ValueError):
         fn(*args)
+
+
+class _Recorder:
+    """A stand-in for a kernel library: records each entry point's
+    arguments and returns 0 (launched)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("gill_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+def _allocations(monkeypatch):
+    """Records (shape, dtype) of every torch.empty call."""
+    made, empty = [], torch.empty
+
+    def recording(*shape, **kw):
+        t = empty(*shape, **kw)
+        made.append((tuple(t.shape), t.dtype))
+        return t
+
+    monkeypatch.setattr(torch, "empty", recording)
+    return made
+
+
+@pytest.mark.parametrize("m,d", [(8192, 320), (2048, 640), (512, 1280),
+                                 (128, 1280)])
+def test_geglu_ln_launches_at_geglu_plan(monkeypatch, m, d):
+    """K9 (the LayerNorm folded in) launches at K3's `geglu_plan`: the
+    same down-GEMM width and splits, a workspace only where it splits, and
+    beside the gated (m, 4d) intermediate only the float32 (m, 2) row
+    statistics, no normalized (m, d) tensor."""
+    bf, f32 = torch.bfloat16, torch.float32
+    x = torch.zeros(m, d, dtype=bf)
+    ff = (torch.zeros(d, 8 * d, dtype=bf), torch.zeros(8 * d, dtype=bf),
+          torch.zeros(4 * d, d, dtype=bf), torch.zeros(d, dtype=bf))
+    ln = (torch.ones(d, dtype=bf), torch.zeros(d, dtype=bf))
+    plan = tgeglu.geglu_plan(m, d)
+    lib = _Recorder()
+    made = _allocations(monkeypatch)
+    out = tgeglu._launch(lib, x, *ff, ln, 1e-5, 132, None)
+    split = [((plan.splits, m, d), f32)] if plan.splits > 1 else []
+    assert made == [((m, 4 * d), bf)] + split + [((m, 2), f32)]
+    assert out.shape == (m, d) and out.dtype == bf
+    made.clear()
+    tgeglu._launch(lib, x, *ff, None, 1e-5, 132, None)
+    assert made == [((m, 4 * d), bf)] + split
+    (name9, k9), (name3, k3) = lib.calls
+    assert name9 == name3 == "gill_geglu_ff"
+    assert k9[-4:-1] == k3[-4:-1] == (d, plan.down_bn, plan.splits)
+    assert k9[12] == m and k9[8:10] == (ln[0].data_ptr(), ln[1].data_ptr())
+    assert k9[10] is not None and k3[8:11] == (None, None, None)
+    assert (k9[7] is None) == (plan.splits == 1)
+
+
+# (m, d, n, k) of the UNet's LN-matmuls (K7: k 1, K8: k 3) at 512 x 512,
+# CFG batch 2, then short and ragged row counts and a single box, and the
+# plan: (rows a block, weight boxes a block, boxes, block columns, block
+# rows)
+LN_PLANS = [((8192, 320, 320, 1), (128, 2, 5, 3, 64)),
+            ((2048, 640, 640, 1), (64, 2, 10, 5, 32)),
+            ((8192, 320, 320, 3), (128, 2, 15, 8, 64)),
+            ((2048, 640, 640, 3), (128, 2, 30, 15, 16)),
+            ((77, 320, 320, 3), (64, 1, 15, 15, 2)),
+            ((130, 640, 640, 3), (64, 1, 30, 30, 3)),
+            ((1, 320, 320, 1), (64, 1, 5, 5, 1)),
+            ((130, 320, 320, 2), (64, 1, 10, 10, 3)),
+            ((20000, 320, 64, 1), (128, 1, 1, 1, 157))]
+
+
+@pytest.mark.parametrize("args,want", LN_PLANS)
+def test_ln_matmul_plan(args, want):
+    plan = tlnm.ln_matmul_plan(*args)
+    assert tuple(plan) == want
+    # every box in exactly one block (the last block of an odd count at
+    # nx 2 repeats its box and stores it once)
+    assert plan.nx * (plan.col_blocks - 1) < plan.boxes <= plan.nx * \
+        plan.col_blocks
+    m = args[0]
+    assert plan.row_blocks == -(-m // plan.bm)
+    # the card is filled, or the call takes 64 rows and one box a block,
+    # the most blocks it can have
+    assert plan.blocks >= 132 or (plan.bm, plan.nx) == (64, 1)
+    assert plan.blocks == plan.col_blocks * plan.row_blocks
+
+
+@pytest.mark.parametrize("args", [(64, 256, 256, 1), (64, 1280, 1280, 1),
+                                  (64, 320, 100, 1), (64, 320, 0, 1),
+                                  (64, 320, 320, 4), (64, 320, 320, 0),
+                                  (0, 320, 320, 1)])
+def test_ln_matmul_plan_refuses_what_the_kernel_does_not_take(args):
+    with pytest.raises(ValueError):
+        tlnm.ln_matmul_plan(*args)
+
+
+@pytest.mark.parametrize("args", [a for a, _ in LN_PLANS[:4]])
+def test_ln_matmul_launches_at_its_plan(monkeypatch, args):
+    """K7/K8 hand the C side the plan's box count and the card's SMs, and
+    allocate only the (k, m, n) output and the float32 (m, 2) row
+    statistics."""
+    m, d, n, k = args
+    bf = torch.bfloat16
+    lib = _Recorder()
+    made = _allocations(monkeypatch)
+    out = tlnm._run(lib, torch.zeros(m, d, dtype=bf),
+                    torch.ones(d, dtype=bf), torch.zeros(d, dtype=bf),
+                    torch.zeros(k, d, n, dtype=bf), 1e-5, 132, None, "t")
+    assert made == [((k, m, n), bf), ((m, 2), torch.float32)]
+    assert out.shape == (k, m, n)
+    (name, call), = lib.calls
+    assert name == "gill_ln_matmul"
+    plan = tlnm.ln_matmul_plan(*args)
+    assert call[6:13] == (m, d, n, k, plan.bm, plan.nx, 132)

@@ -541,19 +541,12 @@ def test_ln_matmul_kernels_refuse_what_they_do_not_take(cuda):
 
 
 @pytest.mark.parametrize("m,d", [(8192, 320), (2048, 640), (512, 1280),
-                                 (128, 1280), (77, 320)])
+                                 (128, 1280), (77, 320), (1, 320),
+                                 (130, 640), (130, 1280)])
 def test_geglu_ln_kernel_matches_plain(cuda, m, d):
     """K9: K3 with the LayerNorm folded in; K3's own count is untouched."""
     g = torch.Generator(cuda).manual_seed(m * d)
-    bf = torch.bfloat16
-    x = (2 * torch.randn(m, d, device=cuda, generator=g) - 0.2).to(bf)
-    gamma = (1 + 0.1 * torch.randn(d, device=cuda, generator=g)).to(bf)
-    beta = (0.1 * torch.randn(d, device=cuda, generator=g)).to(bf)
-    w1 = (torch.randn(d, 8 * d, device=cuda, generator=g) / d ** 0.5).to(bf)
-    b1 = (0.1 * torch.randn(8 * d, device=cuda, generator=g)).to(bf)
-    w2 = (torch.randn(4 * d, d, device=cuda, generator=g) / (2 * d ** 0.5)
-          ).to(bf)
-    b2 = (0.1 * torch.randn(d, device=cuda, generator=g)).to(bf)
+    x, gamma, beta, (w1, b1, w2, b2) = _geglu_case(g, cuda, m, d)
     before = (geglu.geglu_ff.launches, geglu.geglu_ff.ln_launches)
     got = geglu.geglu_ff(x, w1, b1, w2, b2, ln_gamma=gamma, ln_beta=beta)
     torch.cuda.synchronize()
@@ -561,8 +554,9 @@ def test_geglu_ln_kernel_matches_plain(cuda, m, d):
         before[0], before[1] + 1)
     want = geglu.geglu_ff_ref(x, w1, b1, w2, b2, ln_gamma=gamma, ln_beta=beta)
     assert _ulps(got, want, 4)
-    # a strided view of the same rows gives the same result
+    # a strided view of the same rows gives the same result, bit for bit
     wide = torch.cat([x, x[:, :8]], dim=1)[:, :d]
+    assert m == 1 or not wide.is_contiguous()
     again = geglu.geglu_ff(wide, w1, b1, w2, b2, ln_gamma=gamma, ln_beta=beta)
     assert torch.equal(again, got)
     with pytest.raises(ValueError):
@@ -570,6 +564,125 @@ def test_geglu_ln_kernel_matches_plain(cuda, m, d):
     with pytest.raises(TypeError):
         geglu.geglu_ff(x, w1, b1, w2, b2, ln_gamma=gamma.float(),
                        ln_beta=beta)
+
+
+def _geglu_case(g, dev, m, d, shift=0.0):
+    bf = torch.bfloat16
+    x = (2 * torch.randn(m, d, device=dev, generator=g) - 0.2 + shift).to(bf)
+    gamma = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(bf)
+    beta = (0.1 * torch.randn(d, device=dev, generator=g)).to(bf)
+    w1 = (torch.randn(d, 8 * d, device=dev, generator=g) / d ** 0.5).to(bf)
+    b1 = (0.1 * torch.randn(8 * d, device=dev, generator=g)).to(bf)
+    w2 = (torch.randn(4 * d, d, device=dev, generator=g) / (2 * d ** 0.5)
+          ).to(bf)
+    b2 = (0.1 * torch.randn(d, device=dev, generator=g)).to(bf)
+    return x, gamma, beta, (w1, b1, w2, b2)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("m,d", [(1, 320), (77, 320), (130, 640),
+                                 (2048, 640), (8192, 320)])
+def test_ln_matmul_stacked_kernel_takes_every_stack(cuda, m, d, k):
+    """K8 at K = 1, 2 and 3, ragged and short row counts among them: within
+    four ulps of the plain version, one count a call, two calls bit for
+    bit."""
+    g = torch.Generator(cuda).manual_seed(17 * m + d + k)
+    x, gamma, beta, w = _ln_case(g, cuda, m, d, k)
+    before = lnm.ln_matmul_stacked.launches
+    got = lnm.ln_matmul_stacked(x, gamma, beta, w)
+    again = lnm.ln_matmul_stacked(x, gamma, beta, w)
+    torch.cuda.synchronize()
+    assert lnm.ln_matmul_stacked.launches == before + 2
+    assert tuple(got.shape) == (k, m, d) and torch.equal(got, again)
+    assert _ulps(got, lnm.ln_matmul_stacked_ref(x, gamma, beta, w), 4)
+
+
+@pytest.mark.parametrize("m,d", [(8192, 320), (2048, 640), (77, 320)])
+def test_ln_folded_kernels_at_a_large_mean(cuda, m, d):
+    """Rows offset by 30, where the single-pass variance E[x^2] - mean^2
+    loses the most: K7, K8 and K9 within four ulps of their plain
+    versions (which compute the same single-pass statistics)."""
+    g = torch.Generator(cuda).manual_seed(m + 3 * d)
+    x, gamma, beta, w = _ln_case(g, cuda, m, d, 3)
+    x = (x.float() + 30).bfloat16()
+    assert _ulps(lnm.ln_matmul(x, gamma, beta, w[0]),
+                 lnm.ln_matmul_ref(x, gamma, beta, w[0]), 4)
+    assert _ulps(lnm.ln_matmul_stacked(x, gamma, beta, w),
+                 lnm.ln_matmul_stacked_ref(x, gamma, beta, w), 4)
+    x, gamma, beta, ff = _geglu_case(g, cuda, m, d, shift=30.0)
+    ln = dict(ln_gamma=gamma, ln_beta=beta)
+    assert _ulps(geglu.geglu_ff(x, *ff, **ln),
+                 geglu.geglu_ff_ref(x, *ff, **ln), 4)
+
+
+def test_ln_matmul_rows_do_not_depend_on_the_plan(cuda):
+    """A row's product is the same bit for bit whether its block takes 128
+    rows and two weight boxes (8192 rows) or 64 rows and one box (130
+    rows), and whatever the rows around it: the statistics and each box's
+    sums depend on the row and its box alone."""
+    g = torch.Generator(cuda).manual_seed(31)
+    x, gamma, beta, w = _ln_case(g, cuda, 8192, 320, 3)
+    assert lnm.ln_matmul_plan(8192, 320, 320, 3)[:2] == (128, 2)
+    assert lnm.ln_matmul_plan(130, 320, 320, 3)[:2] == (64, 1)
+    full = lnm.ln_matmul_stacked(x, gamma, beta, w)
+    part = lnm.ln_matmul_stacked(x[3968:4098], gamma, beta, w)
+    assert torch.equal(full[:, 3968:4098], part)
+    assert torch.equal(lnm.ln_matmul(x[:130], gamma, beta, w[1]),
+                       full[1, :130])
+
+
+def test_ln_matmul_plan_is_the_c_sides(cuda):
+    """`ln_matmul_plan` and csrc/ln_matmul.cu's `plan_for` give the same
+    launch, and refuse the same calls."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for m in (0, 1, 77, 128, 130, 2048, 8192, 20000):
+        for d in (256, 320, 640, 1280):
+            for n in (0, 64, 100, 320, 640):
+                for k in (0, 1, 2, 3, 4):
+                    try:
+                        want = lnm.ln_matmul_plan(m, d, n, k, sms)
+                    except ValueError:
+                        want = None
+                    assert lnm.c_plan(m, d, n, k, sms) == want, (m, d, n, k)
+
+
+@pytest.mark.parametrize("m,field,value", [(8192, "nx", 1), (8192, "bm", 64),
+                                           (130, "nx", 2), (130, "bm", 128)])
+def test_ln_matmul_kernel_refuses_another_plan(cuda, monkeypatch, m, field,
+                                               value):
+    """The entry point launches only `ln_matmul_plan`'s tile (rows and
+    boxes a block): another is refused at launch, and nothing is
+    counted."""
+    g = torch.Generator(cuda).manual_seed(9)
+    x, gamma, beta, w = _ln_case(g, cuda, m, 320, 3)
+    plan = lnm.ln_matmul_plan(m, 320, 320, 3)
+    assert getattr(plan, field) != value
+    monkeypatch.setattr(lnm, "ln_matmul_plan",
+                        lambda *a: plan._replace(**{field: value}))
+    before = lnm.ln_matmul_stacked.launches
+    with pytest.raises(RuntimeError):
+        lnm.ln_matmul_stacked(x, gamma, beta, w)
+    assert lnm.ln_matmul_stacked.launches == before
+
+
+@pytest.mark.parametrize("m,d", [(8192, 320), (2048, 640), (512, 1280),
+                                 (128, 1280), (77, 320)])
+def test_geglu_ln_kernel_is_k3_on_the_normalized_rows(cuda, m, d):
+    """K9 against K3 fed the plain LayerNorm of the same rows: the two
+    share every GEMM instruction, and differ only where the statistics'
+    summation order moves a bf16 scale by an ulp, so four ulps of the
+    largest output hold; two K9 calls agree bit for bit, and K3 twice
+    too."""
+    g = torch.Generator(cuda).manual_seed(5 * m + d)
+    x, gamma, beta, ff = _geglu_case(g, cuda, m, d)
+    got = geglu.geglu_ff(x, *ff, ln_gamma=gamma, ln_beta=beta)
+    again = geglu.geglu_ff(x, *ff, ln_gamma=gamma, ln_beta=beta)
+    xn = lnm.ln_rows(x, gamma, beta)
+    k3 = geglu.geglu_ff(xn, *ff)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(k3, geglu.geglu_ff(xn, *ff))
+    assert _ulps(got, k3, 4)
 
 
 @pytest.mark.parametrize("t,s,d,q_block", [
