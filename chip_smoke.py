@@ -25,7 +25,14 @@
    of its calls must agree bit for bit. The UNet's bf16 attention
    at head dims 40 / 80 (K2) is also timed at every tile of
    csrc/flash_mma.cu, its int8-QK twin (K10) pre-pass and main kernel
-   apart.
+   apart. The valid-prefix decode attention (K6) runs at every
+   DECODE_SHAPES row (OPT-6.7B's H 32, D 128; B4 S2048 its whole 2,048
+   positions) with a parked row, a full one and rows ending on its plan's
+   split boundaries: each row within its own tolerance, the parked row
+   exactly its v1, two calls bit for bit, and its `decode_plan` the C
+   side's; it is also timed L2-cold (`ms_cold`, as a decode step reads
+   each layer's cache) beside `flat_read_ms`, one `torch.sum` over as many
+   contiguous bytes as its valid rows hold.
 4. Main path (slice 1) at full width: `load_gill` on a model_args.json for
    OPT-6.7B + CLIP ViT-L/14 + SD v1.5 (512 x 512, 50-step PNDM, CFG 7.5) with
    random weights made on the device from a seeded torch.Generator, a random
@@ -42,7 +49,8 @@
        RandomState(7), prompts U[16,240], generations U[16,192]):
        generated tokens/s, ms a decode step with the valid-prefix kernel
        and with the plain decode path, the device's busy share over one
-       profiled chunk and the W8 matmul's device us a step in it;
+       profiled chunk and the W8 matmul's (K4) and the decode attention's
+       (K6) device us a step in it;
    (B) `generate_for_images_and_texts_batch` (8 slots, chunk 16): 8 prompts
        on the text route, then 2 with gen_scale_factor=1e6 through the tap
        ring, retrieval, the decision MLP, GILLMapper, SD and the re-rank;
@@ -67,7 +75,8 @@
    (D4) a 25-step DPM-Solver++ generation.
 7. Probe scripts (slice 4), phase E: the probe kernels against their plain
    versions at the probes' full shapes (the repeated-product probe S1 at
-   its seven cases, the sweep's flash variants S2 and S3 at B 8, S 4096,
+   its seven cases, each row with its `mm_plan` and wgmma's share of the
+   type's peak, the sweep's flash variants S2 and S3 at B 8, S 4096,
    H 8, D 40, each row with its `variant_plan`, its ratio to SDPA and two
    calls bit for bit), then every probe of gill_tpu_torch/scripts/ once at
    its default shapes with its repetitions cut, printing its rows (attn_mxu_
@@ -94,6 +103,14 @@ another checkout, e.g. the parent commit unpacked with `git archive` into
 a directory that .gitignore lists. It prints one "AB" JSON line per run
 (request times, stage means, the UNet calls' host-clock times and device
 profile, the W8 times, failures) and the card's name and power limit.
+
+    python3 chip_smoke.py --ab-kernels OTHER_ROOT [ROUNDS] [ORDER]
+
+times each tree's own valid-prefix decode attention (K6) at every
+DECODE_SHAPES row, L2-warm and L2-cold, and repeated-product probe (S1) at
+its seven cases, on the same inputs, each run in a fresh process, in
+ORDER, ROUNDS times: one "ABK" JSON line per run, after one line per K6
+row with its lengths, bound and this tree's plan.
 """
 
 from __future__ import annotations
@@ -114,7 +131,8 @@ sys.path.insert(0, REPO)
 # the card's peaks, bound(), the event timer and the profiler summary are
 # shared with the probe scripts
 from gill_tpu_torch.scripts._timing import (  # noqa: E402
-    bound, cold_copies, cuda_ms, cuda_ms_cycled, device_profile, smi_line)
+    PEAK_FLOPS, bound, cold_copies, cuda_ms, cuda_ms_cycled, device_profile,
+    smi_line)
 
 FLASH_SRC = "gill_tpu_torch/csrc/flash_attn.cu"
 MMA_SRC = "gill_tpu_torch/csrc/flash_mma.cu"
@@ -128,7 +146,8 @@ MMA_REPLACES = ("gill_tpu/ops/attention.py:392 flash_attention_bthd "
 GEGLU_REPLACES = "gill_tpu/ops/geglu.py:110 geglu_ff"
 W8_REPLACES = ("gill_tpu/ops/w8_matmul.py:125 w8_matmul + "
                "gill_tpu/ops/w8_matmul.py:52 w8_matmul_stacked")
-DECODE_REPLACES = "gill_tpu/ops/decode_attn.py:140 prefix_decode_attention"
+DECODE_REPLACES = ("gill_tpu/ops/decode_attn.py:140 prefix_decode_attention "
+                   "(_kernel :48, pallas_call :178)")
 LN_SRC = "gill_tpu_torch/csrc/ln_matmul.cu"
 LN_REPLACES = "gill_tpu/ops/ln_matmul.py:127 ln_matmul (_kernel)"
 LN3_REPLACES = "gill_tpu/ops/ln_matmul.py:80 ln_matmul_stacked (_kernel_stacked)"
@@ -202,8 +221,10 @@ W8_SHAPES += [("prefill256_fc1", 256, 4096, 16384, "bfloat16")]
 W8_SHAPES += [(f"seq_fp32_{name}", 1, k, n, "float32")
               for name, k, n in (("qkvo", 4096, 4096), ("fc1", 4096, 16384),
                                  ("fc2", 16384, 4096))]
-# (B, S): the decode kernel's calls (slots x read window), H 32, D 128
-DECODE_SHAPES = [(16, 256), (16, 512), (8, 256), (8, 512)]
+# (B, S): the decode kernel's calls (slots x read window), H 32, D 128;
+# B4 S2048 is OPT-6.7B's whole 2,048 positions, where a row's chain is
+# longest
+DECODE_SHAPES = [(16, 256), (16, 512), (8, 256), (8, 512), (4, 2048)]
 # (site, M, d): the LN-matmuls of the UNet's head-dim-40/80 blocks under
 # FUSE_LN (n = d): K7 the cross-attention q, K8 the self-attention q/k/v
 LN_SHAPES = [("unet64", 8192, 320), ("unet32", 2048, 640)]
@@ -232,6 +253,27 @@ def per_row_err(torch, out, ref):
     unit = 2.0 * 2.0 ** -7 if ref.dtype == torch.bfloat16 else 1e-5
     err = (out.float() - ref.float()).abs().flatten(1).amax(1)
     return err, unit * ref.float().abs().flatten(1).amax(1)
+
+
+def decode_ms_cold(torch, pool, s, q, lens, k1, v1, scale) -> float:
+    """K6's time with its cache out of the L2, as a decode step finds each
+    layer's: the calls cycle through copies of the (2, B, S', H, D) pool,
+    >= 2x the L2 in all."""
+    from gill_tpu_torch.ops.decode_attn import prefix_decode_attention
+
+    pools = [pool] + [pool.clone() for _ in range(
+        cold_copies(pool.numel() * pool.element_size()) - 1)]
+    ms = cuda_ms_cycled([lambda p=p: prefix_decode_attention(
+        q, p[0, :, :s], p[1, :, :s], lens, k1, v1, scale=scale)
+        for p in pools], 24)
+    del pools
+    return ms
+
+
+def flat_read_ms(torch, dev, n: int) -> float:
+    """`torch.sum` over n contiguous bf16 values (a streaming read)."""
+    flat = torch.ones(n, device=dev, dtype=torch.bfloat16)
+    return cuda_ms(lambda: flat.sum(dtype=torch.float32), 20)
 
 
 def _flash_pairs(t: int, s: int, causal: bool) -> int:
@@ -266,7 +308,8 @@ def kernel_phase(torch, dev):
     from gill_tpu_torch.ops.attention import (MMA_TILES, flash_attention,
                                               flash_attention_ref,
                                               flash_plan)
-    from gill_tpu_torch.ops.decode_attn import (prefix_decode_attention,
+    from gill_tpu_torch.ops.decode_attn import (c_plan, decode_plan,
+                                                prefix_decode_attention,
                                                 prefix_decode_attention_ref)
     from gill_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ref, geglu_plan
     from gill_tpu_torch.ops import w8_matmul as w8_mod
@@ -400,17 +443,26 @@ def kernel_phase(torch, dev):
     for b, s in DECODE_SHAPES:
         bf = torch.bfloat16
         # a read window of a larger pool, as the engines pass it
-        pool = torch.randn(2, b, 512, h, d, device=dev, generator=g).to(bf)
+        pool = torch.randn(2, b, max(512, s), h, d, device=dev,
+                           generator=g).to(bf)
         k, v = pool[0, :, :s], pool[1, :, :s]
         q, k1, v1 = (torch.randn(b, 1, h, d, device=dev, generator=g).to(bf)
                      for _ in range(3))
         lens = torch.randint(0, s + 1, (b,), device=dev, generator=g,
                              dtype=torch.int32)
         lens[0], lens[-1] = 0, s          # a parked slot and a full window
+        # the plan's split boundaries: a row ending where the first split
+        # ends, one where the last split starts
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = decode_plan(b, s, h, d, sms)
+        lens[1], lens[2] = plan.rows, (plan.splits - 1) * plan.rows
         scale = d ** -0.5
         out = prefix_decode_attention(q, k, v, lens, k1, v1, scale=scale)
+        again = prefix_decode_attention(q, k, v, lens, k1, v1, scale=scale)
         ref = prefix_decode_attention_ref(q, k, v, lens, k1, v1, scale=scale)
         torch.cuda.synchronize()
+        twice = bool(torch.equal(out, again))
+        plan_agrees = c_plan(b, s, h, d, sms) == tuple(plan)
         # each row against its own tolerance (per_row_err); the parked row
         # (length 0) must be exactly its own v1 (weight exp(0) = 1, sum 1)
         err_b, tol_b = per_row_err(torch, out, ref)
@@ -426,17 +478,27 @@ def kernel_phase(torch, dev):
                         f"{n_rows} valid rows",
                "ms": cuda_ms(lambda: prefix_decode_attention(
                    q, k, v, lens, k1, v1, scale=scale), 20),
+               "ms_cold": decode_ms_cold(torch, pool, s, q, lens, k1, v1,
+                                         scale),
+               # a practical floor beside the bound: one library reduction
+               # reading as many contiguous bytes as the valid rows hold
+               "flat_read_ms": flat_read_ms(torch, dev, n_rows * h * d * 2),
                "plain_ms": cuda_ms(lambda: prefix_decode_attention_ref(
                    q, k, v, lens, k1, v1, scale=scale), 20),
                "bound_ms": bms, "bound_by": by, "library_ms": None,
                "tol_rule": "per row", "worst_row": worst,
                "worst_row_err": float(err_b[worst]),
-               "parked_row_exact": parked_exact}
+               "parked_row_exact": parked_exact,
+               "bitwise_equal_twice": twice, "plan": plan._asdict(),
+               "plan_is_c_sides": plan_agrees}
         record(row, float(err_b.max()), float(tol_b[worst]),
-               ok=bool((err_b <= tol_b).all()) and parked_exact,
+               ok=bool((err_b <= tol_b).all()) and parked_exact and twice
+               and plan_agrees,
                note=f" of row {worst}, the nearest its own limit at "
                     f"{float(err_b[worst]):.3e}; rows {lens.tolist()}; "
-                    f"parked row exact: {parked_exact}")
+                    f"parked row exact: {parked_exact}; two calls bitwise "
+                    f"equal: {twice}; plan {tuple(plan)} is the C side's: "
+                    f"{plan_agrees}")
         del pool, k, v
     kernel_phase_sd_modes(torch, dev, g, record)
     return rows, failures
@@ -999,14 +1061,18 @@ def phase_a(torch, lm8, cfg, failures):
     rep["decode_step_ms_with_k6"] = [t for t, p in zip(times, order) if not p]
     rep["decode_step_ms_plain_decode"] = [t for t, p in zip(times, order) if p]
     refilled()
-    prof = device_profile(lambda: eng._run_chunk().numpy(), sums=("w8_",))
+    prof = device_profile(lambda: eng._run_chunk().numpy(),
+                          sums=("w8_", "prefix_decode"))
     rep["profile_one_chunk"] = prof
-    # the W8 matmul's (K4's) device time a decode step and its share of
-    # the chunk's device-busy time
+    # the W8 matmul's (K4's) and the decode attention's (K6's) device time
+    # a decode step and their shares of the chunk's device-busy time
     rep["w8_us_per_step"] = prof["sum_us"]["w8_"] / eng.chunk
+    rep["k6_us_per_step"] = prof["sum_us"]["prefix_decode"] / eng.chunk
     if prof["busy_share"] is not None:
         rep["w8_share_of_device_busy"] = prof["sum_us"]["w8_"] / max(
             prof["busy_us"], 1e-9)
+        rep["k6_share_of_device_busy"] = prof["sum_us"]["prefix_decode"] \
+            / max(prof["busy_us"], 1e-9)
         # the profiler slows the host, so its own busy share reads low: set
         # the device time a step against the unprofiled step time as well
         steps_ms = sorted(rep["decode_step_ms_with_k6"])
@@ -1386,6 +1452,7 @@ def probe_kernel_rows(torch, dev, record):
     from gill_tpu_torch.ops import mm_probe as mp
     from gill_tpu_torch.scripts import attn_mxu_probe, attn_sweep
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for case, m, k, n, dtype in attn_mxu_probe.CASES:
         a, b = attn_mxu_probe.operands(m, k, n, dtype, dev)
         out, want = mp.mm_probe(a, b), mp.mm_probe_ref(a, b)
@@ -1407,8 +1474,20 @@ def probe_kernel_rows(torch, dev, record):
                    lambda: attn_mxu_probe.library_call(a, b), 20),
                "library_computes": f"{mp.REPS} x one "
                                    f"{'torch._int_mm' if i8 else 'torch.matmul'}"
-                                   f" product"}
-        record(row, err, tol)
+                                   f" product",
+               "plan": mp.mm_plan(m, k, n, dtype, sms)._asdict()}
+        # wgmma's share of the card's published peak for the type (the
+        # real M, not the 64 rows a padded tile issues), and the share of
+        # the device time the K-chunk sum (a second pass, K > one chunk)
+        # takes over ten profiled calls (None where the trace holds none)
+        row["peak_share"] = 2.0 * m * k * n * mp.REPS / (
+            row["ms"] * 1e-3) / PEAK_FLOPS["int8" if i8 else "bf16"]
+        su = device_profile(lambda: [mp.mm_probe(a, b) for _ in range(10)],
+                            sums=("mm_rep", "sum_chunks"))["sum_us"]
+        row["chunk_sum_share"] = su["sum_chunks"] / (
+            su["mm_rep"] + su["sum_chunks"]) if su["mm_rep"] > 0 else None
+        record(row, err, tol, note=f"; {row['peak_share']:.3f} of the "
+                                   f"{'int8' if i8 else 'bf16'} peak")
         del a, b, out, want
     b_, s_, h_, d_ = attn_sweep.SHAPE
     q, k, v = attn_sweep.inputs(attn_sweep.SHAPE, dev)
@@ -1593,6 +1672,96 @@ print("AB " + json.dumps({
 """
 
 
+# one timing of a tree's own K6 and S1 at this script's shapes and inputs,
+# in a fresh process (argv[1]: its root, argv[2]: this script, whose
+# tree's scripts/_timing.py times both trees, argv[3]: the calls)
+_ABK_CHILD = """
+import importlib.util, json, os, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from gill_tpu_torch.ops import _build, decode_attn, mm_probe
+from gill_tpu_torch.scripts import attn_mxu_probe
+spec = importlib.util.spec_from_file_location("timing_ab", os.path.join(
+    os.path.dirname(sys.argv[2]), "gill_tpu_torch", "scripts", "_timing.py"))
+me = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(me)
+_build.build_all(("decode_attn", "mm_probe"))
+dev = torch.device("cuda", 0)
+calls = json.loads(sys.argv[3])
+k6 = {}
+for site, b, s, h, d, lens in calls["k6"]:
+    g = torch.Generator(dev).manual_seed(b * s)
+    pool = torch.randn(2, b, max(512, s), h, d, device=dev,
+                       generator=g).bfloat16()
+    q, k1, v1 = (torch.randn(b, 1, h, d, device=dev, generator=g).bfloat16()
+                 for _ in range(3))
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    pools = [pool] + [pool.clone() for _ in range(me.cold_copies(
+        pool.numel() * 2) - 1)]
+    fns = [lambda p=p: decode_attn.prefix_decode_attention(
+        q, p[0, :, :s], p[1, :, :s], ln, k1, v1, scale=d ** -0.5)
+        for p in pools]
+    k6[site] = {"ms": me.cuda_ms(fns[0], 50),
+                "ms_cold": me.cuda_ms_cycled(fns, 48)}
+    del pools, pool
+s1 = {}
+for case, m, kk, n, dt in calls["s1"]:
+    a, bb = attn_mxu_probe.operands(m, kk, n, dt, dev)
+    s1[case.split()[0]] = me.cuda_ms(lambda: mm_probe.mm_probe(a, bb), 20)
+print("ABK " + json.dumps({"k6": k6, "s1_ms": s1}))
+"""
+
+
+def ab_kernels(other: str, rounds: int, order: str = "otto") -> int:
+    """K6 at every DECODE_SHAPES row (a parked row, a full one, rows on
+    this tree's split boundaries, the rest seeded) and S1 at its seven
+    cases, each tree's own kernels in turns, each run in a fresh process
+    on the same inputs."""
+    import numpy as np
+    import torch
+
+    from gill_tpu_torch.ops.decode_attn import decode_plan
+    from gill_tpu_torch.scripts import attn_mxu_probe
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device; none is "
+                           "available")
+    other = os.path.abspath(other)
+    log(f"device: {smi_line()}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k6 = []
+    h, d = 32, 128
+    for b, s in DECODE_SHAPES:
+        lens = np.random.RandomState(b * s).randint(0, s + 1, b)
+        plan = decode_plan(b, s, h, d, sms)
+        lens[0], lens[1], lens[2], lens[-1] = \
+            0, plan.rows, (plan.splits - 1) * plan.rows, s
+        n_rows = int(lens.sum())
+        bms, _ = bound(n_rows * h * d * 2 * 2 + 4 * b * h * d * 2 + 4 * b,
+                       4.0 * n_rows * h * d, "fp32")
+        k6.append((f"b{b}_s{s}", b, s, h, d, lens.tolist()))
+        log("ABK", json.dumps({"k6_site": f"b{b}_s{s}", "rows":
+                               lens.tolist(), "bound_ms": bms,
+                               "plan": plan._asdict()}))
+    calls = json.dumps({"k6": k6, "s1": attn_mxu_probe.CASES})
+    for i in range(rounds):
+        for name, root in [{"o": ("other", other), "t": ("this", REPO)}[c]
+                           for c in order]:
+            run = subprocess.run([sys.executable, "-c", _ABK_CHILD, root,
+                                  os.path.abspath(__file__), calls],
+                                 cwd=root, capture_output=True, text=True)
+            line = [ln for ln in run.stdout.splitlines()
+                    if ln.startswith("ABK ")]
+            if run.returncode != 0 or not line:
+                log(run.stdout[-2000:], run.stderr[-4000:])
+                raise RuntimeError(f"kernels of {root} failed "
+                                   f"(rc {run.returncode})")
+            log("ABK", json.dumps({"round": i, "tree": name, "root": root,
+                                   **json.loads(line[0][4:])}))
+    log(smi_line())
+    return 0
+
+
 def ab_main_path(other: str, rounds: int, order: str = "otto") -> int:
     import torch
 
@@ -1700,7 +1869,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--ab-main-path"]:
-        sys.exit(ab_main_path(sys.argv[2], *[f(a) for f, a in zip(
-            (int, str), sys.argv[3:5])]))
+    for flag, fn in (("--ab-main-path", ab_main_path),
+                     ("--ab-kernels", ab_kernels)):
+        if sys.argv[1:2] == [flag]:
+            sys.exit(fn(sys.argv[2], *[f(a) for f, a in zip(
+                (int, str), sys.argv[3:5])]))
     sys.exit(main())

@@ -107,7 +107,31 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// TMA (K3's, K4's and K7-K9's operand feeds): mbarriers, 2-D tensor copies into
+// wgmma (K3, K7-K9 and S1): the warpgroup's fence, commit and wait, and the
+// shared-memory descriptor of a K-major operand in 128-byte swizzled rows
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// waits until at most N of the warpgroup's committed groups are in flight
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// rows of 128 bytes (64 bf16 or 128 int8 of depth), 128-byte swizzled as TMA
+// writes them (chunk c of row r at chunk c ^ (r % 8)), 8-row atoms 1024
+// bytes apart; a 32-byte depth step starts 32 bytes further into the atom
+__device__ __forceinline__ unsigned long long wg_desc(const void* p) {
+  return (unsigned long long)((smem_u32(p) & 0x3FFFF) >> 4) |
+         (1ull << 16) | ((unsigned long long)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// ---------------------------------------------------------------------------
+// TMA (K3's, K4's, K7-K9's and S1's operand feeds): mbarriers, 2-D tensor copies into
 // shared memory, and the host-side tensor maps they read
 // ---------------------------------------------------------------------------
 

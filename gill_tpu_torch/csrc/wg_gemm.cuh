@@ -33,15 +33,6 @@
 
 namespace {
 
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
 // keeps the compiler from moving accesses of the accumulators across the
 // asynchronous wgmma
 template <int N>
@@ -87,15 +78,6 @@ template <int NX, int BM = WG_BM> struct WgSmem {
   // + 1024 to align the ring to the 1024-byte swizzle atoms, + barriers
   static constexpr int BYTES = 1024 + WG_ST * STAGE + WG_ST * 8;
 };
-
-// the activation tile of a stage as the wgmma B operand: 128-byte
-// swizzled K-major rows, 8-row atoms 1024 bytes apart; k16 step ks starts
-// 32 ks bytes into the atom
-__device__ __forceinline__ unsigned long long wg_desc(const void* p) {
-  return (unsigned long long)((smem_u32(p) & 0x3FFFF) >> 4) |
-         (1ull << 16) | ((unsigned long long)(1024 >> 4) << 32) |
-         (1ull << 62);
-}
 
 // a (BM, NCOL) bf16 tile staged in shared memory (row stride LO) out to
 // rows m0 + [0, BM) (below M) and columns c0 + [0, NCOL) of a row-major
@@ -204,6 +186,8 @@ __device__ __forceinline__ void wg_gemm(float (&acc)[NX][BM / 2],
     wg_fence();
 #pragma unroll
     for (int ks = 0; ks < WG_BK / 16; ++ks) {
+      // the activation tile of the stage as the wgmma B operand; k16 step
+      // ks starts 32 ks bytes into its 128-byte rows
       const unsigned long long desc = wg_desc(st + 32 * ks);
 #pragma unroll
       for (int j = 0; j < NX; ++j) {
@@ -220,7 +204,7 @@ __device__ __forceinline__ void wg_gemm(float (&acc)[NX][BM / 2],
         pro(ring + ((t + 1) % WG_ST) * S::STAGE, t0 + t + 1);
       }
     }
-    wg_wait0();
+    wg_wait<0>();
 #pragma unroll
     for (int j = 0; j < NX; ++j) wg_hold<BM / 2>(acc[j]);
   }

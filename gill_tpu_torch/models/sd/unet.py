@@ -172,18 +172,21 @@ def _resnet(p, x, temb, groups: int):
 
 # (3, d, d) stacked q/k/v weights of a self-attention, built once per
 # parameter tree: keyed by the q weight tensor, checked against the k and v
-# tensors and the dtype it was built from
+# tensors, the three tensors' versions (an in-place write such as `copy_`
+# bumps a version and rebuilds the stack) and the dtype it was built from
 _QKV = WeakIdKeyDictionary()
 
 
 def _stacked_qkv(p, dtype):
     wq, wk, wv = (p[n]["w"] for n in "qkv")
+    versions = (wq._version, wk._version, wv._version)
     hit = _QKV.get(wq)
     if hit is None or hit[0] is not wk or hit[1] is not wv \
-            or hit[2].dtype != dtype:
-        hit = (wk, wv, torch.stack([w.to(dtype) for w in (wq, wk, wv)]))
+            or hit[2] != versions or hit[3].dtype != dtype:
+        hit = (wk, wv, versions,
+               torch.stack([w.to(dtype) for w in (wq, wk, wv)]))
         _QKV[wq] = hit
-    return hit[2]
+    return hit[3]
 
 
 def _attention(p, x, ctx, num_heads: int, ln, q8: bool = False):

@@ -6,19 +6,53 @@ a @ b issued REPS times into one accumulator, a (M, K) and b (K, N), bf16
 with fp32 sums (fp32 out) or int8 with int32 sums (int32 out). The probe
 times it to read the tensor cores' rate with the operands on chip.
 
-CUDA tensors launch csrc/mm_probe.cu or raise; CPU tensors take
+CUDA tensors launch csrc/mm_probe.cu (wgmma from shared memory, 64 x 128
+output tiles, K in chunks of `mm_plan`'s bytes) or raise; CPU tensors take
 `mm_probe_ref`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 REPS = 32            # the original's grid length
-KC = 256             # the kernel's K chunk (a multiple of 16, at most 256)
+TILE = (64, 128)     # a block's output rows x columns (two warpgroups
+                     # take its repetitions in turns)
+CHUNK_BYTES = (512, 256, 128)   # the depth a block keeps, largest first
+H100_SMS = 132
 INT32_MAX = 2 ** 31 - 1
+
+
+class ProbePlan(NamedTuple):
+    """S1's launch: each block one 64 x 128 output tile over `chunk_bytes`
+    of depth (K chunk `chunk_bytes` / element bytes), `chunks` of them
+    summed in order by a second pass when more than one; `blocks`."""
+    chunk_bytes: int
+    chunks: int
+    blocks: int
+
+
+def mm_plan(m: int, k: int, n: int, dtype, num_sms: int = H100_SMS):
+    """The largest K chunk (512, 256 or 128 bytes of depth, at most K's
+    bytes rounded up to 128) whose tiles x chunks give at least 0.9 blocks
+    an SM, else 128 bytes."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    es = 1 if dtype == torch.int8 else 2
+    kbytes = -(-k * es // 16) * 16
+    tiles = -(-m // TILE[0]) * -(-n // TILE[1])
+    cap = -(-kbytes // 128) * 128
+    for cb in CHUNK_BYTES:
+        if cb > cap:
+            continue
+        chunks = -(-kbytes // cb)
+        if tiles * chunks >= 0.9 * num_sms or cb == CHUNK_BYTES[-1]:
+            return ProbePlan(cb, chunks, tiles * chunks)
+    raise AssertionError("unreachable")
 
 
 def mm_probe_ref(a, b):
@@ -49,9 +83,23 @@ def _lib():
     fn = _build.load("mm_probe").gill_mm_probe
     if fn.argtypes is None:
         i, p = ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [p, p, p, p] + [i] * 6 + [p]
+        fn.argtypes = [p, p, p, p] + [i] * 7 + [p]
         fn.restype = i
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _pad_to(t, rows: int, cols: int):
+    """t zero-padded to (rows, cols), contiguous and 16-byte aligned; t
+    itself where it already is (every probe case)."""
+    r, c = t.shape
+    if (r, c) == (rows, cols) and t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return F.pad(t, (0, cols - c, 0, rows - r)).contiguous()
 
 
 def mm_probe(a, b):
@@ -70,16 +118,19 @@ def mm_probe(a, b):
         raise ValueError("a and b must share one device")
     m, k = a.shape
     n = b.shape[1]
-    a, b = a.contiguous(), b.contiguous()
     i8 = a.dtype == torch.int8
+    # rows of 16-byte multiples for TMA and the 4-byte B loads (zeros are
+    # exact); a no-op at every probe case
+    step = 16 if i8 else 8
+    kp, np_ = -(-k // step) * step, -(-n // step) * step
+    a, b = _pad_to(a, m, kp), _pad_to(b, kp, np_)
+    plan = mm_plan(m, kp, n, a.dtype, _num_sms(a.device.index or 0))
     odt = torch.int32 if i8 else torch.float32
-    kc = min(KC, -(-k // 16) * 16)
-    chunks = -(-k // kc)
     out = torch.empty((m, n), device=a.device, dtype=odt)
-    part = torch.empty((chunks, m, n), device=a.device, dtype=odt) \
-        if chunks > 1 else out
+    part = torch.empty((plan.chunks, m, n), device=a.device, dtype=odt) \
+        if plan.chunks > 1 else out
     err = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(), part.data_ptr(),
-                 int(i8), m, n, k, kc, REPS,
+                 int(i8), m, n, kp, np_, plan.chunk_bytes, REPS,
                  torch.cuda.current_stream(a.device).cuda_stream)
     from gill_tpu_torch.ops._build import check
 

@@ -11,9 +11,10 @@ device-memory traffic in the loop), isolating the tensor cores' rate:
   E: PV^T bf16    (48,4096)@(4096,512)
   F: PV^T bf16    (128,4096)@(4096,512)
 Each row: microseconds a product, T/s (TFLOP/s, TOP/s for int8), the share
-of the card's data-sheet peak (WMMA cannot reach it, which needs wgmma),
-and the same product through one library call (`torch.matmul` for bf16,
-`torch._int_mm` for int8) beside it.
+of the card's data-sheet peak (the kernel issues its products with wgmma
+from shared memory; M below 64 pads the tile, so the small-M cases D and E
+cap at M / 64 of it), and the same product through one library call
+(`torch.matmul` for bf16, `torch._int_mm` for int8) beside it.
 
     python -m gill_tpu_torch.scripts.attn_mxu_probe [--out PATH]
 """

@@ -3,12 +3,18 @@ kernel's plain version against the Pallas kernel (interpret mode, as
 tests/test_decode_attn.py runs it), the dispatcher's predicates, and the
 int8-KV `_decode_attention`.
 
+The kernel's split arithmetic (`prefix_decode_attention_split_ref`: per
+split partials merged in order, then the own token) is held against the
+Pallas kernel too, at 1, 2, 3 and 8 splits, and `decode_plan` to its rules.
+
 Tolerances: fp32 2e-5 (test_decode_attn.py's own bound: fp32 softmax sums
 in another order); bf16 outputs one bf16 ulp of the largest output (both
 sides round one fp32 value to bf16); the int8-KV decode four bf16 ulps of
 the largest output (its PV product runs in bf16 on both sides, and the two
 frameworks round the bf16 sum over the cache at different points).
 """
+
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -85,6 +91,93 @@ def test_plain_version_reads_strided_windows():
     want = tda.prefix_decode_attention(q, k.contiguous(), v.contiguous(),
                                        lens.clamp(max=64), k1, v1, scale=0.1)
     torch.testing.assert_close(got, want)
+
+
+def _split_case(splits, dtype, pool=False):
+    """(got, want): the split arithmetic and the Pallas kernel (interpret
+    mode) on one seeded input, B 4, S 128, H 2, D 128, with a parked row,
+    a row ending inside a split, one ending on a split boundary and a full
+    row; `pool` reads the cache as a strided window of a larger pool."""
+    b, s, h, d = 4, 128, 2, 128
+    rng = np.random.RandomState(20 + splits)
+    q, k1, v1 = (rng.randn(b, 1, h, d).astype(np.float32) for _ in range(3))
+    big = rng.randn(2, b, s + 32 if pool else s, h, d).astype(np.float32)
+    rows = tda.split_rows(s, splits)
+    lens = np.array([0, rows // 2 + 3, rows if rows < s else s - rows // 4,
+                     s], np.int32)
+    jdt = getattr(jnp, dtype)
+    want = np.asarray(jda.prefix_decode_attention(
+        jnp.asarray(q, jdt), jnp.asarray(big[0, :, :s], jdt),
+        jnp.asarray(big[1, :, :s], jdt), jnp.asarray(lens),
+        jnp.asarray(k1, jdt), jnp.asarray(v1, jdt), scale=d ** -0.5,
+        interpret=True).astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    tpool = torch.from_numpy(big).to(tdt)
+    k, v = tpool[0, :, :s], tpool[1, :, :s]
+    assert k.is_contiguous() != pool
+    got = tda.prefix_decode_attention_split_ref(
+        torch.from_numpy(q).to(tdt), k, v, torch.from_numpy(lens),
+        torch.from_numpy(k1).to(tdt), torch.from_numpy(v1).to(tdt),
+        scale=d ** -0.5, splits=splits)
+    assert got.dtype == tdt and tuple(got.shape) == (b, 1, h, d)
+    return got.float().numpy(), want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_split_arithmetic_matches_pallas(splits, dtype):
+    got, want = _split_case(splits, dtype)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+    else:
+        assert float(np.abs(got - want).max()) \
+            <= BF16_ULP * float(np.abs(want).max())
+
+
+@pytest.mark.parametrize("splits", [3, 8])
+def test_split_arithmetic_reads_strided_windows(splits):
+    got, want = _split_case(splits, "float32", pool=True)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_split_arithmetic_parked_row_is_own_value():
+    q, k, v, k1, v1 = (torch.from_numpy(x) for x in
+                       _inputs(np.random.RandomState(5), 2, 128, 2, 128))
+    got = tda.prefix_decode_attention_split_ref(
+        q, k, v, torch.zeros(2, dtype=torch.int32), k1, v1, scale=0.1,
+        splits=8)
+    assert torch.equal(got, v1)
+
+
+@pytest.mark.parametrize("b,s,h,d", [
+    (16, 256, 32, 128), (16, 512, 32, 128), (8, 256, 32, 128),
+    (8, 512, 32, 128), (4, 2048, 32, 128), (1, 64, 32, 128),
+    (64, 128, 32, 128), (8, 768, 32, 128), (3, 64, 4, 256), (2, 128, 2, 512),
+    (5, 100, 3, 128), (1, 8, 1, 512)])
+@pytest.mark.parametrize("num_sms", [132, 114, 8])
+def test_decode_plan_rules(b, s, h, d, num_sms):
+    """At most 8 splits (the portable cluster); the splits' row ranges
+    cover [0, S) once, none empty; heads divide H; one ring stage is 16 KB;
+    the plan reads no lengths (its arguments are the shape and the card)."""
+    plan = tda.decode_plan(b, s, h, d, num_sms)
+    assert 1 <= plan.splits <= tda.MAX_SPLITS
+    assert plan.rows % 8 == 0 and plan.rows == tda.split_rows(s, plan.splits)
+    covered = [r for j in range(plan.splits)
+               for r in range(j * plan.rows, min((j + 1) * plan.rows, s))]
+    assert covered == list(range(s))
+    assert (plan.splits - 1) * plan.rows < s
+    assert h % plan.heads == 0 and plan.heads * d <= tda.ROW_ELEMS
+    assert plan.tile_rows * plan.heads * d * 4 == tda.STAGE_BYTES
+    assert plan.blocks == b * (h // plan.heads) * plan.splits
+    assert list(inspect.signature(tda.decode_plan).parameters) == [
+        "b", "s", "h", "d", "num_sms"]
+
+
+@pytest.mark.parametrize("args", [(2, 128, 2, 64), (0, 128, 2, 128),
+                                  (2, 0, 2, 128), (70000, 128, 2, 128)])
+def test_decode_plan_refuses_what_the_kernel_does_not_take(args):
+    with pytest.raises(ValueError):
+        tda.decode_plan(*args)
 
 
 def _zeros(shape, dtype):

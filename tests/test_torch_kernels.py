@@ -15,7 +15,8 @@ outputs and 1e-5 of it for fp32 outputs (fp32 sums in another order, one
 rounding), at every row tile, launch plan and serving shape, one launch a
 call and the same bits twice; the decode attention the same per batch row, from that row's
 own largest output (a row averages its valid cache rows of v, so long rows
-are far smaller than a parked row's own v1), and a parked row exactly v1.
+are far smaller than a parked row's own v1), a parked row exactly v1, rows
+ending on split boundaries, and the same bits twice.
 The LN-folded kernels (LN-matmul, stacked LN-matmul, LN-folded GEGLU) four
 bf16 ulps of the largest output, as GEGLU (the plain version rounds its
 LayerNorm and product sums to bf16 at other points, and its row statistics
@@ -432,23 +433,38 @@ def _assert_rows_close(got, want, unit):
     assert bool((err <= tol).all()), (err.tolist(), tol.tolist())
 
 
-@pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("b,s,h,d", [(16, 256, 32, 128), (8, 512, 32, 128),
-                                     (3, 64, 4, 256), (2, 128, 2, 512)])
-def test_decode_attn_kernel_matches_plain(cuda, b, s, h, d, q_dtype):
-    """Random lengths with a parked row (0) and a full one (S), on a strided
-    read window of a larger pool."""
-    g = torch.Generator(cuda).manual_seed(b * s + d)
-    pool = torch.randn(2, b, s + 64, h, d, device=cuda, generator=g).bfloat16()
+DECODE_CASES = [(16, 256, 32, 128), (8, 512, 32, 128), (4, 2048, 32, 128),
+                (3, 64, 4, 256), (2, 128, 2, 512), (5, 100, 3, 128)]
+
+
+def _decode_case(dev, b, s, h, d, q_dtype):
+    """Random lengths with a parked row (0), a full one (S) and, where the
+    batch has room, rows ending on the plan's split boundaries (the first
+    split's end, the last split's start), on a strided read window of a
+    larger pool."""
+    g = torch.Generator(dev).manual_seed(b * s + d)
+    pool = torch.randn(2, b, s + 64, h, d, device=dev, generator=g).bfloat16()
     k, v = pool[0, :, :s], pool[1, :, :s]
     assert not k.is_contiguous()
-    q = torch.randn(b, 1, h, d, device=cuda, generator=g).to(
+    q = torch.randn(b, 1, h, d, device=dev, generator=g).to(
         getattr(torch, q_dtype))
-    k1, v1 = (torch.randn(b, 1, h, d, device=cuda, generator=g).bfloat16()
+    k1, v1 = (torch.randn(b, 1, h, d, device=dev, generator=g).bfloat16()
               for _ in range(2))
-    lens = torch.randint(0, s + 1, (b,), device=cuda, generator=g,
+    lens = torch.randint(0, s + 1, (b,), device=dev, generator=g,
                          dtype=torch.int32)
+    plan = decode_attn.decode_plan(
+        b, s, h, d, torch.cuda.get_device_properties(dev).multi_processor_count)
+    edges = [plan.rows, (plan.splits - 1) * plan.rows]
+    for i, e in enumerate(edges[:max(0, b - 2)]):
+        lens[1 + i] = e
     lens[0], lens[-1] = 0, s
+    return q, k, v, lens, k1, v1
+
+
+@pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,s,h,d", DECODE_CASES)
+def test_decode_attn_kernel_matches_plain(cuda, b, s, h, d, q_dtype):
+    q, k, v, lens, k1, v1 = _decode_case(cuda, b, s, h, d, q_dtype)
     before = decode_attn.prefix_decode_attention.launches
     got = decode_attn.prefix_decode_attention(q, k, v, lens, k1, v1,
                                               scale=d ** -0.5)
@@ -461,6 +477,24 @@ def test_decode_attn_kernel_matches_plain(cuda, b, s, h, d, q_dtype):
                        else 1e-5)
     # the parked row is its own value, exactly (weight exp(0) = 1, sum 1)
     assert torch.equal(got[0].float(), v1[0].float())
+
+
+@pytest.mark.parametrize("b,s,h,d", DECODE_CASES)
+def test_decode_attn_kernel_gives_the_same_bits_twice(cuda, b, s, h, d):
+    """The splits merge in rank order: two calls agree bit for bit."""
+    args = _decode_case(cuda, b, s, h, d, "bfloat16")
+    a = decode_attn.prefix_decode_attention(*args, scale=d ** -0.5)
+    again = decode_attn.prefix_decode_attention(*args, scale=d ** -0.5)
+    assert torch.equal(a, again)
+
+
+@pytest.mark.parametrize("b,s,h,d", DECODE_CASES + [(64, 128, 32, 128),
+                                                    (1, 8, 1, 512)])
+@pytest.mark.parametrize("num_sms", [132, 114, 8])
+def test_decode_plan_is_the_c_sides(cuda, b, s, h, d, num_sms):
+    assert decode_attn.c_plan(b, s, h, d, num_sms) == tuple(
+        decode_attn.decode_plan(b, s, h, d, num_sms))
+    assert decode_attn.c_plan(b, s, h, 64, num_sms) is None
 
 
 def test_decode_step_takes_the_kernel_through_the_dispatcher(cuda):
@@ -792,10 +826,12 @@ def test_int_mm_pads_to_what_cublas_takes(cuda, m, k, n):
     (512, 4096, 128, "bfloat16"), (512, 4096, 128, "int8"),
     (40, 4096, 512, "bfloat16"), (48, 4096, 512, "bfloat16"),
     (128, 4096, 512, "bfloat16"), (37, 100, 70, "bfloat16"),
-    (37, 100, 70, "int8")])
+    (37, 100, 70, "int8"), (130, 1000, 300, "bfloat16"),
+    (130, 1000, 300, "int8")])
 def test_mm_probe_kernel_matches_plain(cuda, m, k, n, dtype):
     """S1 at the seven probe cases (normal * 3 operands, as the probe makes
-    them) and a ragged case: M, K and N off every tile edge."""
+    them) and ragged cases: M, K and N off every tile edge, several
+    chunks."""
     g = torch.Generator(cuda).manual_seed(m + k + n)
     dt = getattr(torch, dtype)
     a = (3 * torch.randn(m, k, device=cuda, generator=g)).to(dt)

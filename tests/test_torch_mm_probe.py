@@ -94,3 +94,27 @@ def test_wrapper_refuses_what_it_does_not_take():
         mp.mm_probe(a, torch.zeros(8, 8, dtype=torch.bfloat16))
     with pytest.raises(TypeError):
         mp.mm_probe(a.float(), torch.zeros(16, 8))
+
+
+# the chunk each probe case takes on 132 SMs: (chunk bytes, chunks, blocks)
+PLANS = {"A": (256, 1, 128), "B": (128, 1, 128), "C": (512, 16, 128),
+         "C8": (256, 16, 128), "D": (256, 32, 128), "E": (256, 32, 128),
+         "F": (512, 16, 128)}
+
+
+@pytest.mark.parametrize("num_sms", [132, 114])
+def test_mm_plan_at_the_probe_cases(num_sms):
+    """Chunks cover K once at a size the kernel takes, never past K's
+    bytes, and give the card ~one block an SM where K allows."""
+    from gill_tpu_torch.scripts.attn_mxu_probe import CASES
+
+    for case, m, k, n, dtype in CASES:
+        plan = mp.mm_plan(m, k, n, dtype, num_sms)
+        es = 1 if dtype == "int8" else 2
+        assert plan.chunk_bytes in mp.CHUNK_BYTES
+        assert plan.chunk_bytes <= -(-k * es // 128) * 128
+        assert plan.chunks == -(-k * es // plan.chunk_bytes)
+        tiles = -(-m // mp.TILE[0]) * -(-n // mp.TILE[1])
+        assert plan.blocks == tiles * plan.chunks
+        if num_sms == 132:
+            assert tuple(plan) == PLANS[case.split()[0]]

@@ -140,6 +140,33 @@ def test_stacked_qkv_is_built_once_per_tree():
     assert tunet._stacked_qkv(q, torch.bfloat16) is not b
 
 
+def test_fused_ln_unet_runs_weights_written_in_place(monkeypatch):
+    """A self-attention's q weight overwritten with `copy_` after a FUSE_LN
+    call: the next call runs the new weight (the stacked q/k/v cache
+    rebuilds), as gill_tpu, which stacks on every call, does."""
+    cfg = tcfg.tiny_unet_config()
+    tp = tunet.init(Init(torch.Generator().manual_seed(10), "cpu"), cfg)
+    _, _, lat, ctx = _unet_case()
+    monkeypatch.setattr(tunet, "FUSE_LN", True)
+
+    def run():
+        return tunet.apply(tp, cfg, torch.from_numpy(lat), torch.tensor(501.0),
+                           torch.from_numpy(ctx))
+    before = run()
+    wq = tp["down"][0]["attns"][0]["block"]["attn1"]["q"]["w"]
+    rng = np.random.RandomState(12)
+    wq.copy_(torch.from_numpy(rng.randn(*wq.shape).astype(np.float32))
+             * float(wq.std()))
+    got = run()
+    jp = jax.tree_util.tree_map(jnp.asarray, tree_to_numpy(tp))
+    want = np.asarray(jax.jit(functools.partial(
+        junet.apply, cfg=junet.tiny_unet_config()))(
+        jp, latents=jnp.asarray(lat), timesteps=jnp.asarray(501.0),
+        encoder_hidden_states=jnp.asarray(ctx)))
+    assert not np.allclose(before.numpy(), want, atol=1e-3)
+    _close(got, want, 1e-5)
+
+
 def test_ddim_recovers_x0_on_analytic_eps():
     """Mirrors gill_tpu's test: with the exact noise as the model output,
     DDIM walks back to x0 (set_alpha_to_one=False leaves ~3% noise)."""
