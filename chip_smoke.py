@@ -81,9 +81,31 @@
    calls bit for bit), then every probe of gill_tpu_torch/scripts/ once at
    its default shapes with its repetitions cut, printing its rows (attn_mxu_
    probe, attn_sweep, int8_probe, profile_sd, profile_sd_ablate,
-   profile_ln_fuse, profile_prefix_decode, w8_probe); S1-S3 and K4 must
-   launch there and no probe row may fail.
-8. Checks: finite outputs of the expected shapes; request (a) gives the
+   profile_ln_fuse, profile_prefix_decode, w8_probe, profile_specdec);
+   S1-S3 and K4 must launch there and no probe row may fail.
+8. Online serving (slice 11), phase F, on phase A's engine and tokens
+   (`serve/online.py` OnlineEngine): (F1) the 48 requests from 4 threads
+   at once; (F2) the same requests with exponential gaps at half the
+   request rate phase A sustained: time to first token and inter-token
+   gap p50 / p99, tokens/s, the device's busy share over a 2 s profiled
+   window and launches; (F3) a queued and an in-flight request cancelled
+   while the scheduler is parked at a chunk boundary; (F4) `make_server`
+   on 127.0.0.1: four concurrent clients, two streaming, a prefix and a
+   prefixed generate, a client that resets after 3 lines; every request's
+   tokens bit for bit phase A's. (F6) `SpeculativeDecoder` (k = 8, a
+   100-token prompt) on the W8 target with the target itself (64 tokens)
+   and a random OPT-125m (16: it accepts nothing) as drafts: tokens equal
+   to the target's greedy one-token decode and, with the target as draft,
+   every refutable draft accepted, or each split a near-tie (the two
+   sides' logits differ by at least the decode side's top-2 gap); round
+   and plain-step ms. After phases B and C, (F5) the async GILL API on
+   the main path's bf16 model: three concurrent `generate_async` calls
+   (text, image + text, [IMG] with one 50-step 512² generation; at least
+   16 word tokens each) held to the batch API's tokens, captions and
+   route, and a registered + extended chat prefix to the whole
+   conversation. K4 and K6 must launch in F1-F4 and F6, K1 in F1 and F5.
+   Each phase prints its `phase_s`.
+9. Checks: finite outputs of the expected shapes; request (a) gives the
    same tokens with every kernel swapped for its plain version; CLIP, the
    OPT prefill, one full-width UNet step, the VAE decode and one W8 decode
    step of phase A agree with their plain-version runs within stated
@@ -97,12 +119,14 @@ line, the nvidia-smi name/power line and {"ok": true, "device": {...}}.
 instead compares two trees on one card: each tree's own `main_path` (step
 4 and its checks), each run in a fresh process, in ORDER ("o" the other
 tree, "t" this one; default "otto"), ROUNDS times (default 2), then in the same process ten timed
-full-width UNet calls and one under torch.profiler, and the tree's W8
-matmul at every W8_SHAPES row, L2-warm and L2-cold. OTHER_ROOT holds
+full-width UNet calls and one under torch.profiler, the tree's W8
+matmul at every W8_SHAPES row, L2-warm and L2-cold, and its serving
+phases A and B (`phase_a`, `phase_b`). OTHER_ROOT holds
 another checkout, e.g. the parent commit unpacked with `git archive` into
 a directory that .gitignore lists. It prints one "AB" JSON line per run
 (request times, stage means, the UNet calls' host-clock times and device
-profile, the W8 times, failures) and the card's name and power limit.
+profile, the W8 times, phase A's tokens/s and device ms a step, phase B's
+batch s, failures) and the card's name and power limit.
 
     python3 chip_smoke.py --ab-kernels OTHER_ROOT [ROUNDS] [ORDER]
 
@@ -309,6 +333,7 @@ def kernel_phase(torch, dev):
                                               flash_attention_ref,
                                               flash_plan)
     from gill_tpu_torch.ops.decode_attn import (c_plan, decode_plan,
+                                                plan_rows,
                                                 prefix_decode_attention,
                                                 prefix_decode_attention_ref)
     from gill_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ref, geglu_plan
@@ -452,17 +477,20 @@ def kernel_phase(torch, dev):
                              dtype=torch.int32)
         lens[0], lens[-1] = 0, s          # a parked slot and a full window
         # the plan's split boundaries: a row ending where the first split
-        # ends, one where the last split starts
+        # ends, one where the last split starts that holds rows (the plan
+        # is the pool's, `plan_rows`)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = decode_plan(b, s, h, d, sms)
-        lens[1], lens[2] = plan.rows, (plan.splits - 1) * plan.rows
+        s_plan = plan_rows(k, v)
+        plan = decode_plan(b, s_plan, h, d, sms)
+        lens[1] = min(plan.rows, s)
+        lens[2] = (min(plan.splits, -(-s // plan.rows)) - 1) * plan.rows
         scale = d ** -0.5
         out = prefix_decode_attention(q, k, v, lens, k1, v1, scale=scale)
         again = prefix_decode_attention(q, k, v, lens, k1, v1, scale=scale)
         ref = prefix_decode_attention_ref(q, k, v, lens, k1, v1, scale=scale)
         torch.cuda.synchronize()
         twice = bool(torch.equal(out, again))
-        plan_agrees = c_plan(b, s, h, d, sms) == tuple(plan)
+        plan_agrees = c_plan(b, s_plan, h, d, sms) == tuple(plan)
         # each row against its own tolerance (per_row_err); the parked row
         # (length 0) must be exactly its own v1 (weight exp(0) = 1, sum 1)
         err_b, tol_b = per_row_err(torch, out, ref)
@@ -670,9 +698,14 @@ def plain_kernels():
         return attn_mod.flash_attention_ref(q, k, v, causal=causal,
                                             scale=scale, kv_len=kv_len)
 
+    def w8_plain(x, w8, ws, b=None, *, block_n=None, block_k=None,
+                 out=None):
+        y = w8_mod.w8_matmul_ref(x, w8, ws, b)
+        return y if out is None else out.copy_(y.reshape(out.shape))
+
     swaps = [(attn_mod, "flash_attention", flash_plain),
              (unet_mod, "geglu_ff", geglu_ff_ref),
-             (w8_mod, "w8_matmul", w8_mod.w8_matmul_ref),
+             (w8_mod, "w8_matmul", w8_plain),
              (decode_attn, "prefix_decode_attention",
               decode_attn.prefix_decode_attention_ref),
              (ln_mod, "ln_matmul", ln_mod.ln_matmul_ref),
@@ -1116,9 +1149,7 @@ def phase_a(torch, lm8, cfg, failures):
         plain = eng.run_pipelined(list(short))
     rep["requests_equal_to_plain"] = sum(with_k[r.uid] == plain[r.uid]
                                          for r in short) / len(short)
-    del eng
-    torch.cuda.empty_cache()
-    return rep
+    return rep, eng, out
 
 
 def phase_b(torch, w8_model, prompt_b, failures):
@@ -1229,13 +1260,682 @@ def serving(torch, dev, model, prompt_b):
         sd_pipe=model.sd_pipe, retrieval_index=model.index,
         decision_params=model.decision_params, lm_weight_precision="w8"))
     lm8, cfg = w8_model.params["lm"], model.core.opt_cfg
-    report["A"] = phase_a(torch, lm8, cfg, failures)
+    report["A"], eng, out_a = phase_a(torch, lm8, cfg, failures)
     log("serving phase A:", json.dumps(report["A"]))
+    # online serving (phase F) on phase A's engine and its tokens
+    t0 = time.perf_counter()
+    report["F"] = phase_f_lm(torch, eng, out_a, serve_trace(48),
+                             report["A"], failures)
+    del eng
+    torch.cuda.empty_cache()
+    t6 = time.perf_counter()
+    report["F"]["F6"] = f6_speculative(torch, dev, lm8, cfg, failures)
+    report["F"]["F6"]["phase_s"] = time.perf_counter() - t6
+    log("online phase F6:", json.dumps(report["F"]["F6"]))
+    report["F"]["wall_s"] = time.perf_counter() - t0
     report["B"] = phase_b(torch, w8_model, prompt_b, failures)
     log("serving phase B:", json.dumps(report["B"]))
     report["C"] = phase_c(torch, lm8, cfg, failures)
     log("serving phase C:", json.dumps(report["C"]))
+    t0 = time.perf_counter()
+    report["F"]["F5"] = f5_gill(torch, dev, model, failures)
+    report["F"]["F5"]["phase_s"] = time.perf_counter() - t0
+    report["F"]["wall_s"] += report["F"]["F5"]["phase_s"]
+    log("online phase F5:", json.dumps(report["F"]["F5"]))
+    log(f"online phase F: {report['F']['wall_s']:.1f} s in all")
     return report, failures
+
+
+# ---------------------------------------------------------------------------
+# online serving (slice 11)
+# ---------------------------------------------------------------------------
+
+class StreamLog:
+    """Consumes submitted handles' token streams, one thread each, and
+    records each token's host-clock arrival (the instrumentation of this
+    script only)."""
+
+    def __init__(self):
+        self.rec = {}
+        self.threads = []
+
+    def watch(self, key, h, t_submit: float):
+        import threading
+
+        def run():
+            times, before_done = [], None
+            try:
+                for _ in h.stream():
+                    times.append(time.perf_counter())
+                    if before_done is None:
+                        before_done = not h.done.is_set()
+            except RuntimeError as e:
+                self.rec[key] = {"error": str(e)}
+                return
+            self.rec[key] = {"submit": t_submit, "times": times,
+                             "streamed_before_done": bool(before_done)}
+
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        self.threads.append(t)
+
+    def join(self, timeout: float) -> bool:
+        for t in self.threads:
+            t.join(timeout)
+        return not any(t.is_alive() for t in self.threads)
+
+    def latencies(self):
+        """(time to first token s, inter-token gaps s) over the requests."""
+        ttft, gaps = [], []
+        for r in self.rec.values():
+            if r.get("times"):
+                ttft.append(r["times"][0] - r["submit"])
+                gaps += [b - a for a, b in zip(r["times"], r["times"][1:])]
+        return ttft, gaps
+
+
+def pct(xs, q):
+    import numpy as np
+
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+def first_diff(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def check_tokens(got: dict, want: dict, phase: str, failures, rep):
+    """Every request's tokens bit for bit equal to phase A's for its uid."""
+    bad = {u: {"first_diff": first_diff(got[u], want[u]),
+               "len": len(got[u]), "want_len": len(want[u])}
+           for u in got if got[u] != want[u]}
+    rep["tokens_equal_to_phase_a"] = f"{len(got) - len(bad)}/{len(got)}"
+    if bad:
+        rep["mismatches"] = bad
+        failures.append(f"phase {phase}: {len(bad)} requests' tokens differ "
+                        f"from phase A's: {bad}")
+
+
+def f1_burst(torch, online, reqs, want, launches_a, failures):
+    """F1: bench_serve's 48 requests from 4 threads at once."""
+    import threading
+
+    rep, handles, lock, slog = {}, {}, threading.Lock(), StreamLog()
+
+    def submitter(part):
+        for r in part:
+            t = time.perf_counter()
+            h = online.submit(r.prompt, r.max_new_tokens)
+            with lock:
+                handles[r.uid] = h
+            slog.watch(r.uid, h, t)
+
+    zero_launches()
+    s0 = dict(online.eng.stats)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=submitter, args=(reqs[i::4],))
+               for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    got = {u: h.result(timeout=600) for u, h in handles.items()}
+    rep["wall_s"] = time.perf_counter() - t0
+    slog.join(60)
+    rep["launches"] = read_launches()
+    rep["stats"] = {k: online.eng.stats[k] - s0.get(k, 0)
+                    for k in online.eng.stats}
+    n_tok = sum(len(v) for v in got.values())
+    rep["tokens_per_s"] = n_tok / rep["wall_s"]
+    check_tokens(got, want, "F1", failures, rep)
+    rep["streamed_before_done"] = sum(r.get("streamed_before_done", False)
+                                      for r in slog.rec.values())
+    if rep["streamed_before_done"] < 1:
+        failures.append("phase F1: no handle streamed tokens before it "
+                        "finished")
+    need = ["w8_matmul", "prefix_decode_attention"]
+    if launches_a["flash_attention"] > 0:
+        need.append("flash_attention")
+    for name in need:
+        if rep["launches"][name] <= 0:
+            failures.append(f"{name} was not launched in phase F1")
+    return rep
+
+
+def f2_arrivals(torch, online, reqs, want, wall_a, failures):
+    """F2: the same requests with exponential gaps at half the request rate
+    phase A sustained; a 2 s torch.profiler window in the middle reads the
+    device's busy share."""
+    import threading
+
+    import numpy as np
+
+    rep, handles, slog = {}, {}, StreamLog()
+    rate = 0.5 * len(reqs) / wall_a
+    gaps = np.random.RandomState(11).exponential(1 / rate, size=len(reqs))
+    arrivals = np.cumsum(gaps)
+    rep["requests_per_s"] = rate
+    rep["arrival_span_s"] = float(arrivals[-1])
+
+    def submitter(t0):
+        for r, at in zip(reqs, arrivals):
+            delay = t0 + at - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            t = time.perf_counter()
+            handles[r.uid] = online.submit(r.prompt, r.max_new_tokens)
+            slog.watch(r.uid, handles[r.uid], t)
+
+    zero_launches()
+    s0 = dict(online.eng.stats)
+    t0 = time.perf_counter()
+    sub = threading.Thread(target=submitter, args=(t0,), daemon=True)
+    sub.start()
+    time.sleep(max(0.0, float(arrivals[-1]) / 2 - 1.0))
+    window_s = 2.0
+    prof = device_profile(lambda: time.sleep(window_s),
+                          sums=("w8_", "prefix_decode"))
+    sub.join(600)
+    got = {u: handles[u].result(timeout=600) for u in handles}
+    rep["wall_s"] = time.perf_counter() - t0
+    slog.join(60)
+    rep["launches"] = read_launches()
+    rep["stats"] = {k: online.eng.stats[k] - s0.get(k, 0)
+                    for k in online.eng.stats}
+    ttft, gaps_s = slog.latencies()
+    rep["ttft_ms"] = {"p50": 1e3 * pct(ttft, 50), "p99": 1e3 * pct(ttft, 99)}
+    rep["itl_ms"] = {"p50": 1e3 * pct(gaps_s, 50),
+                     "p99": 1e3 * pct(gaps_s, 99)}
+    rep["tokens_per_s"] = sum(len(v) for v in got.values()) / rep["wall_s"]
+    rep["device"] = smi_line()
+    rep["device_busy_share_of_window"] = (prof["busy_us"] / (window_s * 1e6)
+                                          if "busy_us" in prof else 0.0)
+    rep["profile_window"] = {k: prof.get(k) for k in
+                             ("busy_share", "device_events", "sum_us")}
+    check_tokens(got, want, "F2", failures, rep)
+    for name in ("w8_matmul", "prefix_decode_attention"):
+        if rep["launches"][name] <= 0:
+            failures.append(f"{name} was not launched in phase F2")
+    return rep
+
+
+def f3_cancel(torch, online, reqs, want, failures):
+    """F3: 16 long requests fill the slots; the scheduler parks at the start
+    of a chunk (an Event-gated `_run_chunk`) while one queued request and
+    one in flight are cancelled; the others must keep phase A's tokens."""
+    import threading
+
+    rep = {}
+    eng = online.eng
+    long = [r for r in reqs if r.max_new_tokens >= 100]
+    fill, (queued, extra) = long[:16], long[16:18]
+    armed, parked, go = [False], threading.Event(), threading.Event()
+    orig = eng._run_chunk
+
+    def gated():
+        if armed[0]:
+            armed[0] = False
+            parked.set()
+            go.wait(120)
+        return orig()
+
+    eng._run_chunk = gated
+    zero_launches()
+    s0 = dict(eng.stats)
+    try:
+        handles = {r.uid: online.submit(r.prompt, r.max_new_tokens)
+                   for r in fill}
+        for h in handles.values():          # every slot holds a request
+            next(h.stream())
+        armed[0] = True
+        if not parked.wait(120):
+            raise RuntimeError("phase F3: the scheduler did not park")
+        hq = online.submit(queued.prompt, queued.max_new_tokens)
+        hq.cancel()
+        victim = max(fill, key=lambda r: r.max_new_tokens)
+        handles[victim.uid].cancel()
+        handles[extra.uid] = online.submit(extra.prompt, extra.max_new_tokens)
+        go.set()
+        got = {u: h.result(timeout=600) for u, h in handles.items()}
+        rep["queued_cancel_tokens"] = len(hq.result(timeout=600))
+    finally:
+        go.set()
+        del eng._run_chunk
+    rep["launches"] = read_launches()
+    rep["cancelled"] = eng.stats.get("cancelled", 0) - s0.get("cancelled", 0)
+    vt = got.pop(victim.uid)
+    rep["in_flight_cancel_tokens"] = len(vt)
+    if rep["cancelled"] != 2:
+        failures.append(f"phase F3: stats['cancelled'] rose by "
+                        f"{rep['cancelled']}, not 2")
+    if rep["queued_cancel_tokens"] != 0 or not (
+            0 < len(vt) < victim.max_new_tokens
+            and vt == want[victim.uid][:len(vt)]):
+        failures.append(f"phase F3: the cancels gave {rep}")
+    check_tokens(got, want, "F3", failures, rep)
+    for name in ("w8_matmul", "prefix_decode_attention"):
+        if rep["launches"][name] <= 0:
+            failures.append(f"{name} was not launched in phase F3")
+    return rep
+
+
+def f4_http(torch, online, reqs, want, failures):
+    """F4: `make_server` over the same online engine: four concurrent
+    clients (two streaming), a prefix registration and a prefixed
+    generate, and a streaming client that resets after 3 lines."""
+    import socket
+    import struct
+    import threading
+    import urllib.request
+
+    from gill_tpu_torch.serve.http import make_server
+
+    rep = {}
+    srv = make_server(online, host="127.0.0.1", port=0)
+    port = srv.server_address[1]
+    base = f"http://127.0.0.1:{port}"
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+
+    def post(path, body):
+        rq = urllib.request.Request(
+            base + path, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(rq, timeout=600) as r:
+            if body.get("stream"):
+                lines = [json.loads(ln) for ln in r.read().splitlines()
+                         if ln]
+                if lines[-1] != {"done": True, "n": len(lines) - 1}:
+                    raise RuntimeError(f"stream ended with {lines[-1]}")
+                return [ln["token"] for ln in lines[:-1]]
+            return json.loads(r.read())
+
+    def stats():
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            return json.loads(r.read())["lm"]
+
+    zero_launches()
+    try:
+        four = reqs[20:24]
+        got = {}
+
+        def client(i, r):
+            out = post("/v1/generate", {"prompt": r.prompt,
+                                        "max_new_tokens": r.max_new_tokens,
+                                        "stream": i < 2})
+            got[r.uid] = out if i < 2 else out["tokens"]
+
+        threads = [threading.Thread(target=client, args=(i, r))
+                   for i, r in enumerate(four)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        r = reqs[24]
+        pfx = post("/v1/prefix", {"prompt": r.prompt[:len(r.prompt) // 2]})
+        got[r.uid] = post("/v1/generate", {
+            "prompt": r.prompt, "max_new_tokens": r.max_new_tokens,
+            "prefix_id": pfx["prefix_id"]})["tokens"]
+        check_tokens(got, want, "F4", failures, rep)
+        rep["prefix_hits"] = stats()["prefix_hits"]
+
+        # a client that resets after 3 NDJSON lines: its request is
+        # cancelled at the next chunk boundary
+        c0 = stats().get("cancelled", 0)
+        r = max(reqs[25:], key=lambda q: q.max_new_tokens)
+        body = json.dumps({"prompt": r.prompt, "stream": True,
+                           "max_new_tokens": r.max_new_tokens}).encode()
+        s = socket.create_connection(("127.0.0.1", port), timeout=120)
+        s.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: t\r\n"
+                  b"Content-Type: application/json\r\n"
+                  + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+        buf = b""
+        while buf.split(b"\r\n\r\n", 1)[-1].count(b"\n") < 6:
+            chunk = s.recv(65536)          # chunk sizes and lines both end
+            if not chunk:                  # in "\n": 3 lines = 6
+                break
+            buf += chunk
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                     struct.pack("ii", 1, 0))
+        s.close()
+        deadline = time.perf_counter() + 120
+        while stats().get("cancelled", 0) == c0 \
+                and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        rep["disconnect_cancels"] = stats().get("cancelled", 0) - c0
+        if rep["disconnect_cancels"] != 1:
+            failures.append(f"phase F4: a reset client gave "
+                            f"{rep['disconnect_cancels']} cancels in /stats")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    rep["launches"] = read_launches()
+    for name in ("w8_matmul", "prefix_decode_attention"):
+        if rep["launches"][name] <= 0:
+            failures.append(f"{name} was not launched in phase F4")
+    return rep
+
+
+def phase_f_lm(torch, eng, want, reqs, rep_a, failures):
+    """F1-F4 on phase A's engine under one OnlineEngine."""
+    from gill_tpu_torch.serve.online import OnlineEngine
+
+    report = {}
+    online = OnlineEngine(eng)
+    try:
+        for name, fn in (("F1", lambda: f1_burst(
+                torch, online, reqs, want, rep_a["launches"], failures)),
+                         ("F2", lambda: f2_arrivals(
+                             torch, online, reqs, want, rep_a["wall_s"],
+                             failures)),
+                         ("F3", lambda: f3_cancel(torch, online, reqs, want,
+                                                  failures)),
+                         ("F4", lambda: f4_http(torch, online, reqs, want,
+                                                failures))):
+            t0 = time.perf_counter()
+            report[name] = fn()
+            report[name]["phase_s"] = time.perf_counter() - t0
+            log(f"online phase {name}:", json.dumps(report[name]))
+    finally:
+        online.close()
+    if online.crash:
+        failures.append(f"phase F: {online.crash}")
+    return report
+
+
+def f5_gill(torch, dev, model, failures):
+    """F5: the async GILL API at full width on the main path's model (bf16
+    OPT-6.7B + CLIP ViT-L/14, bf16 pool): three concurrent generate_async
+    calls (text, image + text, forced [IMG] with one 50-step 512² SD
+    generation) held to the batch API's tokens, captions and route, then a
+    registered + extended conversation prefix held to the whole
+    conversation's tokens."""
+    import threading
+
+    import numpy as np
+    from PIL import Image
+
+    from gill_tpu_torch.serve.gill_engine import GillDecodeEngine
+
+    rep = {}
+    # every request writes at least `mw` word tokens before an [IMG] run may
+    # start, so each compared token list is at least that long
+    mw = 16
+    common = dict(slots=4, chunk=8, max_seq=512)
+    gen = dict(common, min_word_tokens=mw)
+    img = Image.fromarray(np.random.RandomState(3).randint(
+        0, 256, (256, 256, 3), dtype=np.uint8))
+    cases = {"text": (["A photo of a red canoe on a quiet lake."],
+                      dict(num_words=32)),
+             "image": ([img, "Q: What is in this picture?\nA:"],
+                       dict(num_words=32)),
+             "img_route": (["Show me a picture of a red canoe at sunset.\n"],
+                           dict(num_words=32, gen_scale_factor=1e6))}
+    images = []
+    orig_decode = model.sd_pipe.decode_latents
+
+    def capture_decode(latents):
+        out = orig_decode(latents)
+        images.append(out)
+        return out
+
+    zero_launches()
+    handles = {}
+    model.sd_pipe.decode_latents = capture_decode
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=lambda k=k, p=p, kw=kw: handles.
+                                    __setitem__(k, model.generate_async(
+                                        p, **kw, **gen)))
+                   for k, (p, kw) in cases.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        outs = {k: model.finalize_async(h) for k, h in handles.items()}
+        torch.cuda.synchronize()
+        rep["async_s"] = time.perf_counter() - t0
+    finally:
+        model.sd_pipe.decode_latents = orig_decode
+    rep["launches"] = read_launches()
+    for name in ("flash_attention", "prefix_decode_attention"):
+        if rep["launches"][name] <= 0:
+            failures.append(f"{name} was not launched in phase F5")
+    if len(images) != 1 or tuple(images[0].shape) != (1, 512, 512, 3) \
+            or not bool(torch.isfinite(images[0]).all()):
+        failures.append("phase F5 gave no one finite (1, 512, 512, 3) image")
+
+    # the batch API on the same prompts, slots, chunk and max_seq (SD off:
+    # the [IMG] run's generation embedding stands in for the image)
+    served = []
+    orig_run = GillDecodeEngine.run
+
+    def run_capture(self, requests, **kw):
+        out = orig_run(self, requests, **kw)
+        served.append(out)
+        return out
+
+    GillDecodeEngine.run = run_capture
+    sd, model.sd_pipe = model.sd_pipe, None
+    try:
+        batch = dict(zip(("text", "image"),
+                         model.generate_for_images_and_texts_batch(
+                             [cases["text"][0], cases["image"][0]],
+                             num_words=32, **gen)))
+        batch["img_route"] = model.generate_for_images_and_texts_batch(
+            [cases["img_route"][0]], num_words=32, gen_scale_factor=1e6,
+            **gen)[0]
+    finally:
+        model.sd_pipe = sd
+        GillDecodeEngine.run = orig_run
+    batch_tokens = {"text": served[0][0]["tokens"],
+                    "image": served[0][1]["tokens"],
+                    "img_route": served[1][0]["tokens"]}
+    rep["token_lengths"] = {k: [len(handles[k].tokens),
+                                len(batch_tokens[k])] for k in cases}
+    short = {k: n for k, n in rep["token_lengths"].items() if min(n) < mw}
+    if short:
+        failures.append(f"phase F5: token lists shorter than {mw}: {short}")
+    same = {}
+    for k in cases:
+        o, b = outs[k], batch[k]
+        route = [x if isinstance(x, str) else x["decision"][0] for x in o]
+        same[k] = {"tokens": handles[k].tokens == batch_tokens[k],
+                   "captions_and_route": route == [
+                       x if isinstance(x, str) else x["decision"][0]
+                       for x in b] and all(len(x["gen"]) == 1 for x in o
+                                           if isinstance(x, dict))}
+        rep[f"{k}_output"] = [x if isinstance(x, str) else
+                              {"decision": x["decision"][0],
+                               "gen": len(x["gen"])} for x in o]
+    rep["equal_to_batch"] = same
+    if not all(v for d in same.values() for v in d.values()):
+        failures.append(f"phase F5 differs from the batch API: {same}")
+    if not (len(outs["img_route"]) == 2
+            and isinstance(outs["img_route"][1], dict)):
+        failures.append(f"phase F5 [IMG] request took no [IMG] route: "
+                        f"{rep['img_route_output']}")
+
+    # a chat turn: registered history + extension vs the whole conversation
+    h1 = [img, "User: What is in this picture?\nAssistant: A field.\n"]
+    h2 = ["User: Where could it be?\nAssistant: In the countryside.\n"]
+    turn = ["User: Show me the same field at night.\nAssistant:"]
+    pid0 = model.register_prefix_async(h1, **common)
+    pid1 = model.extend_prefix_async(pid0, h2, **common)
+    hp = model.generate_async(turn, num_words=32, prefix_id=pid1, **gen)
+    hw = model.generate_async(h1 + h2 + turn, num_words=32, **gen)
+    rep["prefix_turn_tokens_equal"] = hp.result(timeout=600) == \
+        hw.result(timeout=600)
+    rep["prefix_turn_token_lengths"] = [len(hp.tokens), len(hw.tokens)]
+    if min(rep["prefix_turn_token_lengths"]) < mw:
+        failures.append(f"phase F5: the chat turn's token lists are shorter "
+                        f"than {mw}: {rep['prefix_turn_token_lengths']}")
+    if not rep["prefix_turn_tokens_equal"]:
+        failures.append(f"phase F5: the prefixed chat turn differs from the "
+                        f"whole conversation at token "
+                        f"{first_diff(hp.tokens, hw.tokens)}")
+    for online in model._online_engines.values():
+        online.close()
+        if online.crash:
+            failures.append(f"phase F5: {online.crash}")
+    model._online_engines.clear()
+    model._serve_engines.clear()
+    torch.cuda.empty_cache()
+    return rep
+
+
+def _top2_gap(logits) -> float:
+    top = logits.float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def near_tie(decode_logits, spec_logits) -> dict:
+    """A split between a one-token step's and a verify window's argmax is a
+    near-tie when the two sides' logits differ, somewhere, by at least the
+    decode side's top-2 gap."""
+    diff = float((decode_logits.float() - spec_logits.float()).abs().max())
+    gap = _top2_gap(decode_logits)
+    return {"decode_top2_gap": gap, "verify_top2_gap": _top2_gap(spec_logits),
+            "max_logit_diff": diff, "near_tie": diff >= gap}
+
+
+def f6_speculative(torch, dev, lm8, cfg, failures):
+    """F6: SpeculativeDecoder on phase A's W8 OPT-6.7B target, k = 8,
+    greedy tokens from a 100-token prompt: 64 with (a) the target as its
+    own draft, 16 with (b) a random OPT-125m (it accepts nothing, so each
+    token is a round); held to the target's own greedy one-token decode
+    (the per-row decode path, K6 at every step), every split analysed as
+    a near-tie or a fault."""
+    import dataclasses
+
+    import numpy as np
+
+    from gill_tpu_torch.config import OPTConfig
+    from gill_tpu_torch.models import opt as opt_mod
+    from gill_tpu_torch.nn.core import Init
+    from gill_tpu_torch.serve.speculative import SpeculativeDecoder
+
+    rep, k, n_new = {}, 8, 64
+    vocab = lm8["embed_tokens"]["weight"].shape[0]
+    tcfg = dataclasses.replace(cfg, vocab_size=vocab)
+    dcfg = OPTConfig.from_name("facebook/opt-125m", vocab_size=vocab)
+    drafts = {"a_target": (lm8, tcfg, n_new),
+              "b_opt125m": (opt_mod.init(Init(torch.Generator(dev)
+                                              .manual_seed(13), dev,
+                                              torch.bfloat16), dcfg), dcfg,
+                            16)}
+    prompt = np.random.RandomState(5).randint(2, 1000, size=100).tolist()
+    plen = len(prompt)
+
+    # the target's own greedy decode: one-token steps on the same prefill
+    kv = lm8["embed_tokens"]["weight"].dtype
+    ref = SpeculativeDecoder(lm8, tcfg, lm8, tcfg, k=k, kv_dtype=kv)
+    tcache, _, first = ref._prefill(prompt)
+    ref_tokens, ref_logits, step_s = [first], [None], []
+    tok = torch.tensor([[first]], device=dev)
+    zero_launches()
+    for pos in range(plen, plen + n_new - 1):
+        t0 = time.perf_counter()
+        out = opt_mod.forward(lm8, tcfg, opt_mod.embed_tokens(lm8, tok),
+                              cache=tcache, cache_pos=torch.full(
+                                  (1,), pos, device=dev, dtype=torch.int32),
+                              lm_head=ref._thead)
+        lg = out["logits"][0, -1]
+        ref_tokens.append(int(lg.argmax()))
+        step_s.append(time.perf_counter() - t0)
+        ref_logits.append(lg)
+        tok = torch.tensor([[ref_tokens[-1]]], device=dev)
+    rep["plain_step_ms"] = 1e3 * float(np.median(step_s))
+    total = {n: c for n, c in read_launches().items()
+             if n in ("w8_matmul", "prefix_decode_attention")}
+    rep["plain_launches_per_step"] = {n: c / (n_new - 1)
+                                      for n, c in total.items()}
+    del tcache
+
+    orig_forward = opt_mod.forward
+    for name, (dparams, dc, n_tok) in drafts.items():
+        calls, round_s = [], []
+
+        def spy(params, cfg_, embs, **kw):
+            out = orig_forward(params, cfg_, embs, **kw)
+            if params is lm8 and "logits" in out:
+                calls.append((kw.get("cache_pos"), embs.shape[1],
+                              out["logits"][0]))
+            return out
+
+        dec = SpeculativeDecoder(lm8, tcfg, dparams, dc, k=k, kv_dtype=kv)
+        orig_round = dec._round
+
+        def timed_round(*a):
+            t0 = time.perf_counter()
+            out = orig_round(*a)           # ends in the accepted count's sync
+            round_s.append(time.perf_counter() - t0)
+            return out
+
+        dec._round = timed_round
+        opt_mod.forward = spy
+        zero_launches()
+        try:
+            toks = dec.generate(prompt, n_tok)
+        finally:
+            opt_mod.forward = orig_forward
+        launches = read_launches()
+        st = dec.last_stats
+        r = {"stats": st, "acceptance": st["accepted"] / max(
+                 1, st["rounds"] * (k - 1)),
+             "round_ms": 1e3 * float(np.median(round_s)),
+             "launches_per_round": {
+                 n: c / st["rounds"] for n, c in launches.items()
+                 if n in ("w8_matmul", "prefix_decode_attention")},
+             "tokens": len(toks),
+             "tokens_equal_to_target_greedy": toks == ref_tokens[:n_tok]}
+        if len(toks) != n_tok:
+            failures.append(f"phase F6 ({name}): {len(toks)} tokens, not "
+                            f"{n_tok}")
+        verify = [(p, lg) for p, t, lg in calls if t == k + 1]
+        if toks != ref_tokens[:n_tok]:
+            p = first_diff(toks, ref_tokens)
+            pos, lg = [(q, x) for q, x in verify if q <= plen + p - 1][-1]
+            r["first_mismatch"] = {"position": p, **near_tie(
+                ref_logits[p], lg[plen + p - 1 - pos])}
+            if not r["first_mismatch"]["near_tie"]:
+                failures.append(f"phase F6 ({name}): token {p} differs from "
+                                f"the target's greedy decode beyond a "
+                                f"near-tie: {r['first_mismatch']}")
+        if name == "a_target":
+            # each rejection of the target by itself: the draft's one-token
+            # step against the verify row that refused it
+            # (the k one-token steps before each verify are its drafts)
+            pending, rejections = [], []
+            for pos, t, lg in calls:
+                if t == 1:
+                    pending.append(lg[0])
+                    continue
+                steps, pending = pending[-k:], []
+                drafted = [int(x.argmax()) for x in steps]
+                agree = lg.argmax(-1).tolist()
+                n = next((j for j in range(k - 1)
+                          if drafted[j] != agree[j]), k - 1)
+                if n < k - 1:
+                    rejections.append({"position": pos + n + 1 - plen,
+                                       **near_tie(steps[n], lg[n])})
+            r["rejections"] = rejections
+            faults = [x for x in rejections if not x["near_tie"]]
+            if faults:
+                failures.append(f"phase F6: the target refused itself "
+                                f"beyond a near-tie: {faults}")
+        rep[name] = r
+        for kname in total:
+            total[kname] += launches[kname]
+        del calls, dec
+    rep["launches"] = total
+    for kname, n in total.items():
+        if n <= 0:
+            failures.append(f"{kname} was not launched in phase F6")
+    rep["device"] = smi_line()
+    del drafts
+    torch.cuda.empty_cache()
+    return rep
 
 
 # ---------------------------------------------------------------------------
@@ -1545,7 +2245,8 @@ def phase_e(torch, dev):
     from gill_tpu_torch.scripts import (attn_mxu_probe, attn_sweep,
                                         int8_probe, profile_ln_fuse,
                                         profile_prefix_decode, profile_sd,
-                                        profile_sd_ablate, w8_probe)
+                                        profile_sd_ablate, profile_specdec,
+                                        w8_probe)
 
     rows, failures, rep = [], [], {}
     t0 = time.perf_counter()
@@ -1566,7 +2267,9 @@ def phase_e(torch, dev):
                   device="cuda", n1=1, n2=3, unet_reps=1)),
               ("profile_prefix_decode", lambda: profile_prefix_decode.probe(
                   device="cuda", n_lo=2, n_hi=6)),
-              ("w8_probe", lambda: w8_probe.probe(device="cuda", reps=12))]
+              ("w8_probe", lambda: w8_probe.probe(device="cuda", reps=12)),
+              ("profile_specdec", lambda: profile_specdec.probe(
+                  device="cuda", rounds=(1, 3), steps=(4, 12)))]
     zero_launches()
     for name, run in probes:
         t0 = time.perf_counter()
@@ -1658,6 +2361,24 @@ with torch.no_grad():
             "ms_cold": me.cuda_ms_cycled(
                 [lambda w=w: w8_matmul(x, w, ws) for w in ws8], 24)}
         del ws8
+    # serving phases A (the W8 engine on bench_serve's trace) and B (the
+    # batch GILL API), each tree's own
+    from gill_tpu_torch.api import GILL
+    w8_model = GILL(model.core, model.params, model.tokenizer, device=dev,
+                    sd_pipe=model.sd_pipe, retrieval_index=model.index,
+                    decision_params=model.decision_params,
+                    lm_weight_precision="w8")
+    ra = cs.phase_a(torch, w8_model.params["lm"], model.core.opt_cfg, fails)
+    ra = ra[0] if isinstance(ra, tuple) else ra
+    torch.cuda.empty_cache()
+    rb = cs.phase_b(torch, w8_model, cs.dialogue_prompt(256, model.tokenizer),
+                    fails)
+    serving = {"A": {k: ra.get(k) for k in (
+                   "wall_s", "tokens_per_s", "warmup_s",
+                   "device_ms_per_step", "w8_share_of_device_busy",
+                   "k6_share_of_device_busy",
+                   "device_share_of_unprofiled_step", "stats")},
+               "B": {k: v for k, v in rb.items() if k.endswith("_s")}}
 ph = rep["phases"]
 print("AB " + json.dumps({
     "request_a_s": rep["request_a_s"], "request_b_s": rep["request_b_s"],
@@ -1665,7 +2386,8 @@ print("AB " + json.dumps({
                                               "clip_vision", "vae_decode")},
     "unet_call_ms_min": min(unet_ms), "unet_call_ms_mean": sum(unet_ms) / 10,
     "unet_profiled": prof, "host_cpu_op_us": host_op_us,
-    "host_python_ms": host_py_ms, "w8_matmul": w8_ms, "failures": fails,
+    "host_python_ms": host_py_ms, "w8_matmul": w8_ms, "serving": serving,
+    "failures": fails,
     "ptxas_if_built_here": {n: [ln.split(":", 1)[-1].strip() for ln in
                                 txt.splitlines() if "registers" in ln]
                             for n, txt in _build.BUILD_LOG.items()}}))

@@ -18,15 +18,22 @@ per-prompt outputs. `lm_weight_precision="w8"` serves int8 LM weights
 `enable_sd_batching` routes SD generations through the cross-request batch
 queue (serve/sd_queue.py).
 
-Not ported yet: the async / online serving methods,
-get_log_likelihood_scores, the safety checker, the HF/diffusers weight
-loaders and the reference `.pth.tar` adapter checkpoint.
+The async methods (`generate_async` -> `finalize_async`, and
+`register_prefix_async` / `extend_prefix_async` / `drop_prefix_async` for
+chat sessions) serve interleaved prompts through the thread-owned online
+GILL engine (serve/online.py `GillOnlineEngine`): concurrent callers share
+its slot pool and stream their tokens.
+
+Not ported yet: get_log_likelihood_scores, the safety checker, the
+HF/diffusers weight loaders and the reference `.pth.tar` adapter
+checkpoint.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import threading
 from typing import List, Optional
 
 import numpy as np
@@ -75,6 +82,8 @@ class GILL:
             raise ValueError(f"kv_cache_precision {kv_cache_precision!r}")
         self.kv_int8 = kv_cache_precision == "int8"
         self._serve_engines = {}
+        self._online_engines = {}
+        self._online_lock = threading.Lock()
         self.core = core
         self.params = params
         self.tokenizer = tokenizer
@@ -88,12 +97,14 @@ class GILL:
 
     # -- prompt assembly -------------------------------------------------------
 
-    def _encode_prompts(self, prompts: List, always_add_bos: bool = False):
+    def _encode_prompts(self, prompts: List, always_add_bos: bool = False,
+                        add_bos: bool = True):
         """Interleaved [PIL.Image | str] -> (embs (1, T, E) fp32, ids (1, T)
         with IGNORE at image positions). BOS is added once unless
-        always_add_bos (reference models.py:600-626)."""
+        always_add_bos (reference models.py:600-626). add_bos=False: these
+        prompts CONTINUE a sequence (the suffix after a registered serving
+        prefix, which holds the BOS already)."""
         embs, ids = [], []
-        add_bos = True
         for p in prompts:
             if isinstance(p, Image.Image):
                 px = image_utils.clip_preprocess(p, self.core.cfg.image_size)
@@ -181,8 +192,7 @@ class GILL:
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
         scale = max(ret_scale_factor, 1.0) * max(gen_scale_factor, 1.0)
-        emb_dt = (torch.bfloat16 if self.device.type == "cuda"
-                  else torch.float32)
+        emb_dt = self._serve_dtype()
         base_seed = int(torch.randint(0, 2**31 - 1, (), generator=generator,
                                       device=generator.device))
         reqs = []
@@ -391,6 +401,132 @@ class GILL:
             if warmup:
                 self.sd_batcher.warmup(**warmup_kw)
         return self.sd_batcher
+
+    # -- online (streaming) serving -------------------------------------------
+
+    def _serve_dtype(self):
+        """The serving engines' KV pool and request embedding dtype: bf16
+        on CUDA, fp32 on the CPU (gill_tpu: bf16 on a TPU, else fp32)."""
+        return torch.bfloat16 if self.device.type == "cuda" else torch.float32
+
+    def get_online_engine(self, slots: int = 4, chunk: int = 8,
+                          max_seq: int = 512, sampling: bool = False,
+                          max_img_runs: int = 1):
+        """The thread-owned online GILL serving engine for this
+        configuration (serve/online.py GillOnlineEngine over
+        serve/gill_engine.py), built on first use. Its KV pool is bf16 on
+        CUDA (kv_cache_precision="int8" applies to the sequential decode
+        only)."""
+        from gill_tpu_torch.serve.gill_engine import GillDecodeEngine
+        from gill_tpu_torch.serve.online import GillOnlineEngine
+
+        key = (slots, chunk, max_seq, sampling, max_img_runs)
+        with self._online_lock:          # concurrent callers build one
+            online = self._online_engines.get(key)
+            if online is None:
+                if self.kv_int8:
+                    import warnings
+
+                    warnings.warn("kv_cache_precision='int8' applies to the "
+                                  "sequential decode path; the serving "
+                                  "engines use a bf16 KV pool", stacklevel=2)
+                eng = GillDecodeEngine(self.core, self.params, slots=slots,
+                                       max_seq=max_seq, chunk=chunk,
+                                       kv_dtype=self._serve_dtype(),
+                                       sampling=sampling,
+                                       max_img_runs=max_img_runs)
+                online = GillOnlineEngine(eng)
+                self._online_engines[key] = online
+        return online
+
+    def generate_async(self, prompts: List, num_words: int = 32,
+                       min_word_tokens: int = 0,
+                       ret_scale_factor: float = 1.0,
+                       gen_scale_factor: float = 1.0,
+                       temperature: float = 0.0, top_p: float = 1.0,
+                       seed: int = 0, max_num_rets: int = 1,
+                       always_add_bos: bool = False, *, slots: int = 4,
+                       chunk: int = 8, max_seq: int = 512,
+                       prefix_id: Optional[int] = None):
+        """Submits one interleaved prompt to the online serving engine;
+        returns a GillRequestHandle whose .tokens stream in (the valid
+        prefix) and whose .result() blocks until completion. Concurrent
+        callers share the slot pool. Finish with finalize_async() for
+        generate_for_images_and_texts' output structure.
+
+        prefix_id (from register_prefix_async): prompts then carry only
+        the NEW turn; the prefix's KV rows are reused and no BOS is added
+        again."""
+        embs, _ = self._encode_prompts(prompts, always_add_bos,
+                                       add_bos=prefix_id is None)
+        online = self.get_online_engine(slots=slots, chunk=chunk,
+                                        max_seq=max_seq,
+                                        sampling=temperature > 0,
+                                        max_img_runs=max_num_rets)
+        scale = max(ret_scale_factor, 1.0) * max(gen_scale_factor, 1.0)
+        return online.submit(embs[0].to(self._serve_dtype()), num_words,
+                             min_word_tokens=min_word_tokens,
+                             img_scale=scale, temperature=temperature,
+                             top_p=top_p, seed=seed,
+                             max_img_runs=max_num_rets, prefix_id=prefix_id)
+
+    def register_prefix_async(self, prompts: List, *, slots: int = 4,
+                              chunk: int = 8, max_seq: int = 512,
+                              sampling: bool = False,
+                              max_num_rets: int = 1) -> int:
+        """Registers a shared conversation prefix (system prompt + history,
+        text and images) with the online GILL engine: its KV rows are
+        prefilled once, and generate_async calls passing the returned
+        prefix_id send only their new prompts. Prefix ids belong to ONE
+        engine configuration: pass the same slots / chunk / max_seq /
+        sampling / max_num_rets with the follow-ups."""
+        embs, _ = self._encode_prompts(prompts)
+        online = self.get_online_engine(slots=slots, chunk=chunk,
+                                        max_seq=max_seq, sampling=sampling,
+                                        max_img_runs=max_num_rets)
+        return online.register_prefix(embs[0].to(self._serve_dtype()))
+
+    def extend_prefix_async(self, prefix_id: int, prompts: List, *,
+                            slots: int = 4, chunk: int = 8,
+                            max_seq: int = 512, sampling: bool = False,
+                            max_num_rets: int = 1) -> int:
+        """Grows a registered conversation prefix by one turn's prompts
+        (e.g. the user turn and the model's reply as a string), prefilling
+        only the NEW rows. Returns the new prefix id (the parent stays
+        registered; drop_prefix_async frees it)."""
+        embs, _ = self._encode_prompts(prompts, add_bos=False)
+        online = self.get_online_engine(slots=slots, chunk=chunk,
+                                        max_seq=max_seq, sampling=sampling,
+                                        max_img_runs=max_num_rets)
+        return online.extend_prefix(prefix_id,
+                                    embs[0].to(self._serve_dtype()))
+
+    def drop_prefix_async(self, prefix_id: int, *, slots: int = 4,
+                          chunk: int = 8, max_seq: int = 512,
+                          sampling: bool = False,
+                          max_num_rets: int = 1) -> None:
+        """Frees a registered prefix's cached KV on the online engine."""
+        online = self.get_online_engine(slots=slots, chunk=chunk,
+                                        max_seq=max_seq, sampling=sampling,
+                                        max_img_runs=max_num_rets)
+        online.drop_prefix(prefix_id)
+
+    def finalize_async(self, handle, generator: Optional[torch.Generator]
+                       = None, guidance_scale: float = 7.5,
+                       num_inference_steps: int = 50,
+                       max_num_rets: int = 1):
+        """Waits for an async request and runs the retrieval / decision /
+        SD post-processing: generate_for_images_and_texts' output
+        structure. `generator` (on the model's device) drives the SD
+        latents; None = a generator seeded with 0. max_num_rets beyond
+        the submit-time tap ring reuses the last captured run."""
+        tokens = np.asarray(handle.result(), np.int32)
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(0)
+        img_runs = torch.from_numpy(handle.img_runs).to(self.device)
+        return self._postprocess_generation(
+            tokens, _run_lookup(tokens, img_runs, self.core.img_start),
+            max_num_rets, generator, guidance_scale, num_inference_steps)
 
     @staticmethod
     def _to_pil(arr) -> List[Image.Image]:

@@ -22,8 +22,11 @@
 //    of group g, a contiguous heads x D slice of each cache row (1 KB at
 //    D = 128 and four heads, where one head's strip is 256 bytes of an 8 KB
 //    row). The plan (`plan_for`, exported as gill_decode_plan and mirrored
-//    by ops/decode_attn.py `decode_plan`) comes from the bucket S, B, H, D
-//    and the SM count, never from `lengths`, which stay on the device:
+//    by ops/decode_attn.py `decode_plan`) comes from the pool's rows
+//    (`plan_S`: those of the pool the view reads, not the view's, so a
+//    read window the other slots' depths set leaves a row's splits and
+//    bits as they are), B, H, D and the SM count, never from `lengths`,
+//    which stay on the device:
 //    fewer heads a block where the head groups alone leave the card under
 //    half full, then as many splits (<= 8, >= 128 rows each) as one wave
 //    of resident blocks (2 an SM) holds. A split that starts at or past
@@ -462,17 +465,18 @@ extern "C" int gill_decode_plan(int B, int S, int H, int D, int sms,
 // with element strides (sb, ss, sh) and unit last stride, all multiples of
 // 8 with 16-byte aligned bases; lengths (B,) int32, clipped to [0, S].
 // D in {128, 256, 512}. heads, splits and rows must be the plan
-// gill_decode_plan gives for (B, S, H, D, sms). One launch. Returns a
+// gill_decode_plan gives for (B, plan_S, H, D, sms), plan_S >= S the rows
+// of the pool the view is a window of. One launch. Returns a
 // cudaError_t (0 = launched; an invalid value also for any other plan).
 extern "C" int gill_prefix_decode_attn(
     const void* q, const void* k1, const void* v1, const void* k,
     const void* v, const void* lengths, void* out, int q_f32, int B, int S,
-    int H, int D, long long ksb, long long kss, long long ksh, long long vsb,
-    long long vss, long long vsh, float scale, int sms, int heads,
-    int splits, int rows, void* stream) {
+    int plan_S, int H, int D, long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh, float scale, int sms,
+    int heads, int splits, int rows, void* stream) {
   Plan pl;
-  if (!plan_for(B, S, H, D, sms, &pl) || pl.heads != heads ||
-      pl.splits != splits || pl.rows != rows ||
+  if (plan_S < S || !plan_for(B, plan_S, H, D, sms, &pl) ||
+      pl.heads != heads || pl.splits != splits || pl.rows != rows ||
       ((ksb | kss | ksh | vsb | vss | vsh) & 7))
     return (int)cudaErrorInvalidValue;
   Params p{q, static_cast<const bf16*>(k1), static_cast<const bf16*>(v1),

@@ -36,7 +36,11 @@
 //  * at M <= 16 the eight warps take eighths of each stage's K rows over
 //    one x tile of 8 or 16 rows; at M > 16 (prefill waves) a 128-row x
 //    tile, each warp 32 of its rows (four n8 tiles, so every widened A
-//    fragment feeds four products) over half of the stage's K rows;
+//    fragment feeds four products) over half of the stage's K rows,
+//    at one plan for every M from 17 to 256 (the K split of one row
+//    block); `ops/w8_matmul.py` `w8_matmul_rows` takes longer products as
+//    256-row windows, so a prefill row's bits do not follow its wave's
+//    size;
 //  * fp32 x (the sequential decode, M = 1): exact fp32 FMA on the CUDA
 //    cores on the same ring, each lane four adjacent columns, the weights
 //    widened through fp32 (2^23 + u - (2^23 + 128));
@@ -100,7 +104,11 @@ bool plan_for(int M, int K, int N, int is_f32, int sms, int block_n,
   const int wk = is_f32 ? 1 : (mt == 128 ? NCW / 4 : NCW);
   if (bk < 16 * wk) return false;
   const int base = ceil_div(M, mt) * (N / bn), tiles = K / bk;
-  int splits = sms / base;
+  // bf16 x: the split one row block would take, also for a second 128-row
+  // block (M 129-256), so a row's K order, and with it its bits, is the
+  // same at every row count from 17 to 256 (a prefill wave's rows do not
+  // depend on the rows it shares its call with)
+  int splits = sms / (is_f32 ? base : N / bn);
   splits = splits < 1 ? 1 : (splits > MAX_SPLITS ? MAX_SPLITS : splits);
   while (tiles % splits) --splits;
   const int stage =

@@ -32,6 +32,16 @@ import torch
 from gill_tpu_torch.config import OPTConfig
 from gill_tpu_torch.nn import core as nn
 from gill_tpu_torch.ops.attention import dot_product_attention
+from gill_tpu_torch.ops.w8_matmul import row_windows
+
+# On the card cuBLAS picks a plain (bf16 / fp32) weight's algorithm by the
+# product's row count: at OPT-6.7B's fc2 (K 16384) it sums K in another
+# order above 128 rows than at 64 or 128 (the q/k/v/o and fc1 shapes keep
+# one order at every count), so a prefill wave's size would change its
+# prompts' bits. The decoder runs such products of more than ROW_WINDOW
+# rows as windows of exactly ROW_WINDOW rows, as W8 products take K4's
+# 256-row windows (ops/w8_matmul.py `w8_matmul_rows`).
+ROW_WINDOW = 128
 
 
 def init(init: nn.Init, cfg: OPTConfig):
@@ -58,6 +68,42 @@ def init(init: nn.Init, cfg: OPTConfig):
                                            bias=False)
         params["project_out"] = init.linear(d, cfg.word_embed_proj_dim,
                                             bias=False)
+    return params
+
+
+def init_dummy(cfg: OPTConfig, dtype=torch.bfloat16, *, device):
+    """Parameters of the right structure and shapes with zero weights and
+    unit LayerNorm scales (gill_tpu `init_dummy`), made on `device`: for
+    runs where the values do not matter (the serving CLI, the speculative
+    decoding probe), without a random generator's transients."""
+    n, d, f = cfg.num_layers, cfg.hidden_size, cfg.ffn_dim
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=device, dtype=dtype)
+
+    def lin(si, so):
+        return {"w": zeros(n, si, so), "b": zeros(n, so)}
+
+    def ln(*lead):
+        return {"scale": torch.ones((*lead, d), device=device, dtype=dtype),
+                "bias": zeros(*lead, d)}
+
+    params = {
+        "embed_tokens": {"weight": zeros(cfg.vocab_size,
+                                         cfg.word_embed_proj_dim)},
+        "embed_positions": {"weight": zeros(
+            cfg.max_positions + cfg.position_offset, d)},
+        "layers": {
+            "attn": {k: lin(d, d) for k in "qkvo"},
+            "attn_ln": ln(n), "fc1": lin(d, f), "fc2": lin(f, d),
+            "mlp_ln": ln(n),
+        },
+    }
+    if cfg.do_layer_norm_before:
+        params["final_ln"] = ln()
+    if cfg.word_embed_proj_dim != cfg.hidden_size:
+        params["project_in"] = {"w": zeros(cfg.word_embed_proj_dim, d)}
+        params["project_out"] = {"w": zeros(d, cfg.word_embed_proj_dim)}
     return params
 
 
@@ -190,6 +236,22 @@ def _write_at(cache_kv, rows, pos):
         dst[bidx, pc] = torch.where(keep, new[:, 0], dst[bidx, pc])
 
 
+def _linear(p, x):
+    """`nn.linear`, with a plain weight's product on the card of more than
+    ROW_WINDOW rows taken in ROW_WINDOW-row windows (see ROW_WINDOW)."""
+    m = x.numel() // x.shape[-1]
+    if "w" not in p or not x.is_cuda or m <= ROW_WINDOW:
+        return nn.linear(p, x)
+    w = p["w"].to(x.dtype)
+    x2 = x.reshape(m, x.shape[-1])
+    y = torch.empty((m, w.shape[1]), device=x.device, dtype=x.dtype)
+    for lo, hi in row_windows(m, ROW_WINDOW):
+        torch.matmul(x2[lo:hi], w, out=y[lo:hi])
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y.reshape(*x.shape[:-1], w.shape[1])
+
+
 def _layer(cfg: OPTConfig, lp, h, *, cache_kv=None, cache_pos=None,
            per_row=None):
     """One decoder layer; `per_row` is `_per_row_decode(cache_pos, S)` when
@@ -200,9 +262,9 @@ def _layer(cfg: OPTConfig, lp, h, *, cache_kv=None, cache_pos=None,
 
     resid = h
     x = nn.layer_norm(lp["attn_ln"], h, cfg.layer_norm_eps) if pre_ln else h
-    q = nn.linear(lp["attn"]["q"], x).reshape(b, t, nh, hd)
-    k = nn.linear(lp["attn"]["k"], x).reshape(b, t, nh, hd)
-    v = nn.linear(lp["attn"]["v"], x).reshape(b, t, nh, hd)
+    q = _linear(lp["attn"]["q"], x).reshape(b, t, nh, hd)
+    k = _linear(lp["attn"]["k"], x).reshape(b, t, nh, hd)
+    v = _linear(lp["attn"]["v"], x).reshape(b, t, nh, hd)
 
     if cache_kv is None:
         attn = dot_product_attention(q, k, v, causal=True)
@@ -235,12 +297,12 @@ def _layer(cfg: OPTConfig, lp, h, *, cache_kv=None, cache_pos=None,
             attn = dot_product_attention(q, ck, cv, causal=True,
                                          kv_offset=cache_pos)
 
-    h = resid + nn.linear(lp["attn"]["o"], attn.reshape(b, t, d))
+    h = resid + _linear(lp["attn"]["o"], attn.reshape(b, t, d))
     if not pre_ln:
         h = nn.layer_norm(lp["attn_ln"], h, cfg.layer_norm_eps)
     resid = h
     x = nn.layer_norm(lp["mlp_ln"], h, cfg.layer_norm_eps) if pre_ln else h
-    h = resid + nn.linear(lp["fc2"], torch.relu(nn.linear(lp["fc1"], x)))
+    h = resid + _linear(lp["fc2"], torch.relu(_linear(lp["fc1"], x)))
     if not pre_ln:
         h = nn.layer_norm(lp["mlp_ln"], h, cfg.layer_norm_eps)
     return h
@@ -264,7 +326,12 @@ def forward(params, cfg: OPTConfig, inputs_embeds, *,
         positions = positions + cache_pos.long()[:, None]
     elif cache_pos:
         positions = positions + cache_pos
-    pos_emb = params["embed_positions"]["weight"][positions + cfg.position_offset]
+    # a bucket's pad rows may lie past the position table (a tiny model
+    # served at a longer max_seq): clamped into it, as gill_tpu's gather
+    # clamps; their outputs are never read
+    table = params["embed_positions"]["weight"]
+    pos_emb = table[(positions + cfg.position_offset).clamp(
+        max=table.shape[0] - 1)]
     h = h + pos_emb.to(h.dtype)
     hs = [h] if collect_hidden else None
 

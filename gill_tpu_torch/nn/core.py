@@ -130,21 +130,23 @@ def linear(p, x):
     """x @ w (+ b), weight cast to x's dtype (gill_tpu nn.core.linear).
 
     W8A16 leaves {"w8" (K, N) int8, "ws" (N,) fp32, "b"?, markers}
-    (models/opt.py quantize_params_w8): on CUDA, calls in the W8 kernel's
-    scope (`ops.w8_matmul.supported`: M <= 256 rows, K and N multiples of
-    512) with no "xla" marker take the kernel (gill_tpu: on a TPU); the
-    rest — prefill-sized M and the CPU — take the dequant form
-    x @ (w8 * ws) (+ b) in x's dtype, as gill_tpu computes it outside any
-    Pallas kernel. W8A8 leaves {"wq", "ws", "b"?} take `quant.int8_linear`
-    (dynamic per-tensor activation scale, int32 sums)."""
+    (models/opt.py quantize_params_w8): on CUDA, calls with K and N
+    multiples of 512 and no "xla" marker take the kernel (gill_tpu: on a
+    TPU, up to 256 rows), above 256 rows as 256-row windows
+    (`ops.w8_matmul.w8_matmul_rows`), so a prefill row's bits do not
+    depend on its wave's size; the rest — other shapes and the CPU — take
+    the dequant form x @ (w8 * ws) (+ b) in x's dtype, as gill_tpu
+    computes it outside any Pallas kernel. W8A8 leaves {"wq", "ws", "b"?}
+    take `quant.int8_linear` (dynamic per-tensor activation scale, int32
+    sums)."""
     if "wq" in p:
         return quant.int8_linear(x, p["wq"], p["ws"], p.get("b"))
     if "w8" in p:
         w8 = p["w8"]
         kdim, n = w8.shape
-        if (x.is_cuda and "xla" not in p
-                and w8_ops.supported(x.numel() // kdim, kdim, n)):
-            return w8_ops.w8_matmul(x, w8, p["ws"], p.get("b"))
+        if (x.is_cuda and "xla" not in p and w8_ops.supported(
+                min(x.numel() // kdim, w8_ops.MAX_M), kdim, n)):
+            return w8_ops.w8_matmul_rows(x, w8, p["ws"], p.get("b"))
         w = w8.to(x.dtype) * p["ws"].to(x.dtype)[None, :]
         y = torch.matmul(x, w)
         if "b" in p:

@@ -527,13 +527,17 @@ flash_attention_q8.launches = 0
 # ---------------------------------------------------------------------------
 
 def flash_eligible(*, on_cuda: bool, t: int, s: int, has_bias: bool,
-                   has_kv_offset: bool, impl: str) -> bool:
+                   has_kv_offset: bool, impl: str,
+                   causal: bool = False) -> bool:
     """The dispatcher's flash gate: forced by impl='flash'; under 'auto',
     multi-token queries over >= 256 keys with no additive bias or dynamic
-    kv_offset, on a CUDA device (gill_tpu: on a TPU)."""
+    kv_offset, on a CUDA device (gill_tpu: on a TPU) — and there causal
+    ones over any number of keys: a prompt's rows then take one kernel
+    whatever bucket its prefill wave pads it to (on the plain path below
+    256 keys and the kernel above, its bits followed the wave)."""
     return impl == "flash" or (
         impl == "auto" and on_cuda and not has_bias and not has_kv_offset
-        and t > 1 and s >= 256)
+        and t > 1 and (s >= 256 or causal))
 
 
 def prefix_decode_eligible(q, k, kv_offset, extra_kv, kv_scales, *,
@@ -577,9 +581,14 @@ def dot_product_attention(q, k, v, *, causal: bool = False, bias=None,
                                  kv_scales=kv_scales).to(q.dtype)
     if extra_kv is not None or kv_scales is not None:
         raise ValueError("extra_kv/kv_scales are decode-only")
+    if isinstance(kv_offset, int) and kv_offset == k.shape[1] - q.shape[1]:
+        # the bottom-right alignment, which every path takes by default (a
+        # prefix's suffix over exactly its cache rows)
+        kv_offset = None
     if flash_eligible(on_cuda=q.is_cuda, t=q.shape[1], s=k.shape[1],
                       has_bias=bias is not None,
-                      has_kv_offset=kv_offset is not None, impl=impl):
+                      has_kv_offset=kv_offset is not None, impl=impl,
+                      causal=causal):
         return flash_attention(q, k, v, causal=causal, scale=scale, fast=fast)
     return _xla_attention(q, k, v, causal=causal, bias=bias, scale=scale,
                           kv_offset=kv_offset)

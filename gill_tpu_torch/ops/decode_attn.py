@@ -9,7 +9,8 @@ q's dtype. The serving engines pass a strided view of their KV pool (one
 layer, one read window): the kernel reads it in place.
 
 CUDA tensors launch csrc/decode_attn.cu (bf16 cache, D in {128, 256,
-512}) in one launch at the geometry `decode_plan` gives, or raise; CPU
+512}) in one launch at the geometry `decode_plan` gives for the rows of the
+pool the view reads (`plan_rows`), or raise; CPU
 tensors take `prefix_decode_attention_ref`. The kernel splits each row's
 cache along S over the blocks of a thread-block cluster and merges the
 splits in rank order; `prefix_decode_attention_split_ref` is that
@@ -177,7 +178,7 @@ def _lib():
     fn = lib.gill_prefix_decode_attn
     if fn.argtypes is None:
         i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
                        ll, ll, ll, ll, ll, ll, ctypes.c_float, i, i, i, i, p]
         fn.restype = i
         lib.gill_decode_plan.argtypes = [i] * 5 + [ctypes.POINTER(ctypes.c_int)]
@@ -198,6 +199,18 @@ def c_plan(b: int, s: int, h: int, d: int, num_sms: int):
     return None if err else tuple(out)
 
 
+def plan_rows(k, v) -> int:
+    """The cache rows K6 plans its splits for: those of the pool a
+    (B, S, H, D) view reads (its batch stride over its row stride, where
+    both k and v are such windows), else the view's S. The engines decode
+    over a read window that the other slots' depths set; planned for the
+    pool, a row keeps its splits, and so its bits, whatever the window."""
+    s = k.shape[1]
+    pools = [c.stride(0) // c.stride(1) if c.stride(1) > 0 and
+             c.stride(0) % c.stride(1) == 0 else 0 for c in (k, v)]
+    return max(s, min(pools))
+
+
 def _row_major(t):
     return t if t.is_contiguous() and t.data_ptr() % 16 == 0 else \
         t.clone(memory_format=torch.contiguous_format)
@@ -207,7 +220,8 @@ def prefix_decode_attention(q, k, v, lengths, k1, v1, *, scale: float):
     """q/k1/v1 (B, 1, H, D); cache k/v (B, S, H, D), any strides with a
     unit last one; lengths (B,) = valid cache rows per batch row. Returns
     (B, 1, H, D) in q.dtype. Replaces gill_tpu `prefix_decode_attention`
-    (Pallas `_kernel`); on the card, one launch at `decode_plan`."""
+    (Pallas `_kernel`); on the card, one launch at `decode_plan` for the
+    pool's rows (`plan_rows`)."""
     if not q.is_cuda:
         return prefix_decode_attention_ref(q, k, v, lengths, k1, v1,
                                            scale=scale)
@@ -238,7 +252,8 @@ def prefix_decode_attention(q, k, v, lengths, k1, v1, *, scale: float):
                              f"strides multiples of 8 and a 16-byte aligned "
                              f"base; got strides {c.stride()}")
     sms = _num_sms(q.device.index or 0)
-    plan = decode_plan(b, s, h, d, sms)
+    s_plan = plan_rows(k, v)
+    plan = decode_plan(b, s_plan, h, d, sms)
     q, k1, v1 = _row_major(q), _row_major(k1.to(k.dtype)), \
         _row_major(v1.to(v.dtype))
     lens = lengths.to(torch.int32).contiguous()
@@ -246,7 +261,7 @@ def prefix_decode_attention(q, k, v, lengths, k1, v1, *, scale: float):
     err = _lib().gill_prefix_decode_attn(
         q.data_ptr(), k1.data_ptr(), v1.data_ptr(), k.data_ptr(),
         v.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.float32), b, s, h, d,
+        int(q.dtype == torch.float32), b, s, s_plan, h, d,
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), float(scale), sms,
         plan.heads, plan.splits, plan.rows,

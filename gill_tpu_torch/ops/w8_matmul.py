@@ -12,6 +12,9 @@ copy the slice `w8[idx]`; in PyTorch that slice is a view, so
 CUDA tensors launch csrc/w8_matmul.cu (M <= 256 rows, K and N multiples
 of 512) in one launch at the geometry `w8_plan` gives, or raise; CPU
 tensors take `w8_matmul_ref`. The wrapper allocates only the output.
+`w8_matmul_rows` takes any row count, above 256 as 256-row windows, so on
+the card every row of a bf16 product of more than 16 rows is summed in
+one order, whatever rows share its call.
 """
 
 from __future__ import annotations
@@ -68,8 +71,11 @@ def w8_plan(m: int, k: int, n: int, dtype, num_sms: int = H100_SMS,
     bf16 x (128 at M <= 16); by default 256, 128 with 128-column bf16
     strips. Stages: as many as fit 96 KB (2-8), and enough to hold the
     warps' fp32 partials afterwards. The K tiles split over a cluster of
-    min(8, num_sms // (strips x row blocks)) blocks, lowered until it
-    divides them. Raises ValueError (TypeError for the dtype) for a call
+    min(8, num_sms // strips) blocks for bf16 x (one row block's split,
+    also for M 129-256: every M from 17 to 256 takes one plan, so a row's
+    bits do not depend on the call's row count), min(8, num_sms //
+    (strips x row blocks)) for fp32 x, lowered until it divides them.
+    Raises ValueError (TypeError for the dtype) for a call
     the kernel does not take."""
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     if dtype not in (torch.bfloat16, torch.float32):
@@ -98,7 +104,10 @@ def w8_plan(m: int, k: int, n: int, dtype, num_sms: int = H100_SMS,
                          f"bf16 x at M = {m}, got {block_k}")
     base = -(-m // mt) * (n // bn)
     tiles = k // bk
-    splits = max(1, min(_MAX_SPLITS, num_sms // base))
+    # bf16 x: one row block's split at every M, so from 17 to 256 rows a
+    # row is summed in one K order (a prefill wave's size leaves its bits)
+    splits = max(1, min(_MAX_SPLITS,
+                        num_sms // (base if fp32 else n // bn)))
     while tiles % splits:
         splits -= 1
     stage = -(-(bk * bn + mt * bk * (4 if fp32 else 2)) // 1024) * 1024
@@ -151,11 +160,13 @@ def c_plan(m: int, k: int, n: int, dtype, num_sms: int, block_n=None,
 _BIAS_KIND = {torch.float32: 1, torch.bfloat16: 2}
 
 
-def w8_matmul(x, w8, ws, b=None, *, block_n=None, block_k=None):
+def w8_matmul(x, w8, ws, b=None, *, block_n=None, block_k=None, out=None):
     """x (..., K) -> (..., N) in x's dtype. Replaces gill_tpu `w8_matmul`
     (Pallas `_kernel`). `block_n` / `block_k` pick the strip width and the
     K rows of a stage on the card (`w8_plan`); on the CPU they change
-    nothing, but values the kernel does not take raise there too."""
+    nothing, but values the kernel does not take raise there too. `out`:
+    a contiguous (M, N) tensor in x's dtype the card's kernel writes
+    (returned reshaped); the CPU ignores it."""
     kdim, n = w8.shape
     m = x.numel() // kdim if kdim else 0
     if not x.is_cuda:
@@ -185,7 +196,13 @@ def w8_matmul(x, w8, ws, b=None, *, block_n=None, block_k=None):
         x2 = x2.clone(memory_format=torch.contiguous_format)
     ws = ws.contiguous()
     b = None if b is None else b.contiguous()
-    out = torch.empty((m, n), device=x.device, dtype=x.dtype)
+    if out is None:
+        out = torch.empty((m, n), device=x.device, dtype=x.dtype)
+    elif out.shape != (m, n) or out.dtype != x.dtype \
+            or out.device != x.device or not out.is_contiguous() \
+            or out.data_ptr() % 16:
+        raise ValueError(f"out must be a contiguous, 16-byte aligned "
+                         f"({m}, {n}) {x.dtype} tensor on {x.device}")
     err = _lib().gill_w8_matmul(
         int(plan.route == "fma"), x2.data_ptr(), w8.data_ptr(), w8.stride(0),
         ws.data_ptr(), None if b is None else b.data_ptr(),
@@ -201,6 +218,36 @@ def w8_matmul(x, w8, ws, b=None, *, block_n=None, block_k=None):
 
 
 w8_matmul.launches = 0
+
+
+def row_windows(m: int, size: int = MAX_M) -> list:
+    """The (start, stop) rows of each launch of an m-row product taken in
+    windows of `size` rows (K4: MAX_M): one window up to `size` rows,
+    else windows of exactly `size` rows, the last ending at row m (it
+    overlaps the one before it, whose rows it writes again with the same
+    bits), so every row takes the plan of a `size`-row call."""
+    if m <= size:
+        return [(0, m)]
+    return [(s, s + size) for s in
+            list(range(0, m - size, size)) + [m - size]]
+
+
+def w8_matmul_rows(x, w8, ws, b=None):
+    """`w8_matmul` at any row count: on the card one K4 launch a window
+    of `row_windows`, each writing its rows of one output in place. With
+    the plan's row-count-free K split a row's bits are the same in a
+    prefill wave of any size. CPU tensors take `w8_matmul_ref`."""
+    kdim, n = w8.shape
+    m = x.numel() // kdim if kdim else 0
+    if not x.is_cuda or m <= MAX_M:
+        return w8_matmul(x, w8, ws, b)
+    x2 = x.reshape(m, kdim)
+    if not x2.is_contiguous():
+        x2 = x2.contiguous()
+    out = torch.empty((m, n), device=x.device, dtype=x.dtype)
+    for lo, hi in row_windows(m):
+        w8_matmul(x2[lo:hi], w8, ws, b, out=out[lo:hi])
+    return out.reshape(*x.shape[:-1], n)
 
 
 def w8_matmul_stacked(x, w8, ws, b, idx: int, *, block_n=None, block_k=None):

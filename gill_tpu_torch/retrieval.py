@@ -38,10 +38,11 @@ def load_embeddings(model_dir: str, pattern: str = "cc3m*.npy"
 
 
 class RetrievalIndex:
-    """Device-resident normalized, logit_scale-premultiplied index."""
+    """Device-resident normalized, logit_scale-premultiplied index, on the
+    card unless `device` names another (as `load_gill`)."""
 
     def __init__(self, paths: Sequence[str], emb_matrix, logit_scale: float,
-                 device=None):
+                 device="cuda"):
         self.paths = list(paths)
         mat = torch.as_tensor(emb_matrix, device=device).float()
         mat = mat / torch.linalg.vector_norm(mat, dim=1, keepdim=True)

@@ -9,7 +9,13 @@ per-request max_new_tokens end a request. What it keeps from gill_tpu:
   * batched prefill WAVES: every refill of one scheduler visit prefills in
     one forward — prompts pad to the wave's largest bucket, the request
     count to the `_rbucket` ladder; pad rows carry slot id == `slots` and
-    are dropped; the first token comes from the last valid position;
+    are dropped; the first token comes from the last valid position,
+    through a head product of `slots` rows (`head_rows`). On the card a
+    row's bits do not depend on the wave: K4's plan is the same at every
+    row count above 16 (longer products in 256-row windows), causal
+    prompts take the flash kernel at every bucket, and K6 plans for the
+    pool, not the read window (ops/w8_matmul.py, ops/attention.py,
+    ops/decode_attn.py);
   * decode in CHUNKS of `chunk` steps over device-resident per-slot state
     (pos / tok / active / limit): within a chunk the host neither reads
     nor waits; it reads the chunk's token block once (row 0 = the entry
@@ -85,6 +91,18 @@ def kv_read_ladder(kv_read_buckets, max_seq: int) -> tuple:
             b *= 2
     return tuple(sorted({b for b in (kv_read_buckets or ()) if b < max_seq}
                         | {max_seq}))
+
+
+def head_rows(h, head, rows: int) -> torch.Tensor:
+    """fp32 logits of a prefill wave's last hidden rows h (r, E) against
+    the tied fp32 head (V, E), computed as one `rows`-row product (zero
+    rows appended; the engines pass their slot count): the library GEMM's
+    algorithm, and with it a row's rounding, follows its row count, so a
+    request's first token would otherwise depend on its wave's size."""
+    r = h.shape[0]
+    if r < rows:
+        h = torch.cat([h, h.new_zeros((rows - r, h.shape[1]))])
+    return (h.float() @ head.t())[:r]
 
 
 def to_device(arr, device) -> torch.Tensor:
@@ -234,7 +252,8 @@ class DecodeEngine:
                               cache_pos=n_pfx, skip_logits=True)
         lens_d = to_device(lens, dev).long()
         h_last = out["last_hidden"][torch.arange(r, device=dev), lens_d - 1]
-        first = (h_last.float() @ self._head.t()).argmax(-1).to(torch.int32)
+        first = head_rows(h_last, self._head, self.slots).argmax(-1).to(
+            torch.int32)
         live = np.nonzero(slot_ids < self.slots)[0]
         if live.size:
             rows = to_device(live, dev)

@@ -41,8 +41,9 @@ import torch
 
 from gill_tpu_torch.models import opt as opt_mod
 from gill_tpu_torch.ops.sampling import sample_per_row, uniform_for
-from gill_tpu_torch.serve.engine import (HostCopy, _bucket, kv_read_ladder,
-                                         pool_window_hi, to_device)
+from gill_tpu_torch.serve.engine import (HostCopy, _bucket, head_rows,
+                                         kv_read_ladder, pool_window_hi,
+                                         to_device)
 
 
 @dataclass
@@ -71,6 +72,8 @@ class _GSlot:
     fresh: bool = True
     planned: int = 0               # FED steps covered by dispatched chunks
     fed: int = 0                   # FED steps covered by COLLECTED blocks
+    prefix_ok: bool = True         # valid prefix still unbroken (latches;
+                                   # online streaming, serve/online.py)
     done: bool = False
 
 
@@ -199,7 +202,7 @@ class GillDecodeEngine:
                               cache_pos=n_pfx, skip_logits=True)
         lens_d = to_device(lens, dev).long()
         h_last = out["last_hidden"][torch.arange(r, device=dev), lens_d - 1]
-        logits0 = h_last.float() @ self._head.t()
+        logits0 = head_rows(h_last, self._head, self.slots)
 
         def col(name, default, dtype):
             return to_device(np.asarray(

@@ -256,10 +256,38 @@ def test_dispatcher_decode_equals_jax_dispatcher():
           impl="xla"), False),
     (dict(on_cuda=False, t=64, s=77, has_bias=False, has_kv_offset=False,
           impl="flash"), True),
+    (dict(on_cuda=True, t=64, s=64, has_bias=False, has_kv_offset=False,
+          impl="auto", causal=True), True),
+    (dict(on_cuda=False, t=64, s=64, has_bias=False, has_kv_offset=False,
+          impl="auto", causal=True), False),
+    (dict(on_cuda=True, t=1, s=64, has_bias=False, has_kv_offset=False,
+          impl="auto", causal=True), False),
+    (dict(on_cuda=True, t=9, s=512, has_bias=False, has_kv_offset=True,
+          impl="auto", causal=True), False),
+    (dict(on_cuda=True, t=64, s=64, has_bias=False, has_kv_offset=False,
+          impl="xla", causal=True), False),
 ])
 def test_flash_gate(case, expect):
-    """gill_tpu's gate (attention.py:611-615) with CUDA in place of TPU."""
+    """gill_tpu's gate (attention.py:611-615) with CUDA in place of TPU,
+    and on CUDA causal prompts at any length (their rows then take one
+    kernel at every bucket a prefill wave pads them to)."""
     assert tattn.flash_eligible(**case) is expect
+
+
+def test_dispatcher_takes_a_bottom_right_offset_as_none():
+    """A static kv_offset equal to S - T (a prefix's suffix over exactly
+    its cache rows) is the default alignment: the same bits as no offset,
+    and gill_tpu's values with the offset (2e-6 / 2e-5, as above)."""
+    q, k, v = _qkv(12, 2, 5, 12, 2, 16)
+    tq, tk, tv = _torch(q, k, v)
+    got = tattn.dot_product_attention(tq, tk, tv, causal=True, kv_offset=7)
+    assert torch.equal(got, tattn.dot_product_attention(tq, tk, tv,
+                                                        causal=True))
+    want = jattn.dot_product_attention(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), causal=True,
+                                       kv_offset=7)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6,
+                               rtol=2e-5)
 
 
 def test_dispatcher_routes(monkeypatch):

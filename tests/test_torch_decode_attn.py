@@ -185,6 +185,24 @@ def _zeros(shape, dtype):
         jnp, str(dtype).split(".")[-1]))
 
 
+def test_plan_rows_follow_the_pool():
+    """K6 plans for the pool a (B, S, H, D) window reads (its batch
+    stride over its row stride), so the engines' read window leaves a
+    row's splits as they are; any other layout plans for its own S."""
+    from gill_tpu_torch.ops.decode_attn import plan_rows
+
+    pool = torch.zeros(2, 3, 512, 4, 128)               # (L, B, S, H, D)
+    k, v = pool[0], pool[1]
+    assert plan_rows(k, v) == 512
+    assert plan_rows(k[:, :256], v[:, :256]) == 512
+    assert plan_rows(k[:, :256], v[:, :256].contiguous()) == 256
+    own = torch.zeros(3, 256, 4, 128)
+    assert plan_rows(own, own) == 256
+    assert plan_rows(own[:1].expand(3, -1, -1, -1), own) == 256
+    seq_major = torch.zeros(256, 3, 4, 128).transpose(0, 1)
+    assert plan_rows(seq_major, seq_major) == 256
+
+
 def test_supported_predicate():
     """test_decode_attn.py::test_supported_predicate's cases on both
     packages (the port's scope also requires a bf16 cache)."""

@@ -37,7 +37,10 @@ for needed in ("gill_tpu_torch.serve.engine", "gill_tpu_torch.serve.gill_engine"
                "gill_tpu_torch.scripts.profile_sd",
                "gill_tpu_torch.scripts.profile_sd_ablate",
                "gill_tpu_torch.scripts.profile_ln_fuse",
-               "gill_tpu_torch.scripts.profile_prefix_decode"):
+               "gill_tpu_torch.scripts.profile_prefix_decode",
+               "gill_tpu_torch.scripts.profile_specdec",
+               "gill_tpu_torch.serve.online", "gill_tpu_torch.serve.http",
+               "gill_tpu_torch.serve.speculative"):
     assert needed in names, needed
 assert not bad, bad
 """

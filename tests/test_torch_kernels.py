@@ -426,6 +426,47 @@ def test_w8_plan_is_the_c_sides(cuda, dtype):
                         (m, k, n, bn, bk)
 
 
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 16384),
+                                 (16384, 4096)])
+def test_w8_matmul_rows_bits_do_not_follow_the_row_count(cuda, k, n):
+    """bf16 x above 16 rows: a row's bits are the same at every row count,
+    above 256 rows in `w8_matmul_rows`' 256-row windows, so a prefill
+    wave's size leaves its rows' bits as they are."""
+    x, w, ws, b = _w8_operands(torch.Generator(cuda).manual_seed(k + 2 * n),
+                               cuda, 1000, k, n, torch.bfloat16)
+    ref = w8.w8_matmul(x[:256], w, ws, b)
+    for m in (17, 64, 128, 129, 200, 256, 257, 512, 1000):
+        got = w8.w8_matmul_rows(x[:m], w, ws, b)
+        assert got.shape == (m, n)
+        assert torch.equal(got[:17], ref[:17]), m
+    whole = w8.w8_matmul_rows(x, w, ws, b)
+    assert torch.equal(whole[980:], w8.w8_matmul(x[980:], w, ws, b))
+    _w8_close(whole, x, w, ws, b)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 16384),
+                                 (16384, 4096)])
+def test_decoder_products_do_not_follow_the_row_count(cuda, k, n):
+    """OPT-6.7B's plain bf16 decoder products (models/opt.py `_linear`,
+    128-row windows above 128 rows): a row's bits at every prefill row
+    count equal its bits in a 64-row call."""
+    from gill_tpu_torch.models import opt as opt_mod
+
+    g = torch.Generator(cuda).manual_seed(k + n)
+    p = {"w": (0.02 * torch.randn(k, n, device=cuda, generator=g)).bfloat16(),
+         "b": (0.1 * torch.randn(n, device=cuda, generator=g)).bfloat16()}
+    x = torch.randn(1024, k, device=cuda, generator=g).bfloat16()
+    ref = opt_mod._linear(p, x[:64])
+    for m in (128, 192, 256, 512, 1024):
+        got = opt_mod._linear(p, x[:m].reshape(m // 64, 64, k))
+        assert got.shape == (m // 64, 64, n)
+        assert torch.equal(got[0], ref), m
+    whole = opt_mod._linear(p, x)
+    want = x.float() @ p["w"].float() + p["b"].float()
+    assert float((whole.float() - want).abs().max()) \
+        <= 4 * 2.0 ** -7 * float(want.abs().max())
+
+
 def _assert_rows_close(got, want, unit):
     """Each batch row within `unit` times its own largest |want|."""
     err = (got.float() - want.float()).abs().flatten(1).amax(1)
@@ -453,8 +494,10 @@ def _decode_case(dev, b, s, h, d, q_dtype):
     lens = torch.randint(0, s + 1, (b,), device=dev, generator=g,
                          dtype=torch.int32)
     plan = decode_attn.decode_plan(
-        b, s, h, d, torch.cuda.get_device_properties(dev).multi_processor_count)
-    edges = [plan.rows, (plan.splits - 1) * plan.rows]
+        b, decode_attn.plan_rows(k, v), h, d,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    edges = [e for e in (plan.rows, (plan.splits - 1) * plan.rows)
+             if e <= s]
     for i, e in enumerate(edges[:max(0, b - 2)]):
         lens[1 + i] = e
     lens[0], lens[-1] = 0, s
@@ -495,6 +538,28 @@ def test_decode_plan_is_the_c_sides(cuda, b, s, h, d, num_sms):
     assert decode_attn.c_plan(b, s, h, d, num_sms) == tuple(
         decode_attn.decode_plan(b, s, h, d, num_sms))
     assert decode_attn.c_plan(b, s, h, 64, num_sms) is None
+
+
+@pytest.mark.parametrize("b,s", [(16, 256), (8, 256), (4, 512)])
+def test_decode_attn_plans_for_the_pool_not_the_window(cuda, b, s):
+    """A read window of the pool gives each row the bits the whole pool
+    gives it: the split plan is the pool's (`plan_rows`), so the window,
+    which the other slots' depths set, leaves a row's tokens alone."""
+    g = torch.Generator(cuda).manual_seed(b + s)
+    pool = torch.randn(2, b, 2048, 32, 128, device=cuda,
+                       generator=g).bfloat16()
+    q, k1, v1 = (torch.randn(b, 1, 32, 128, device=cuda, generator=g)
+                 .bfloat16() for _ in range(3))
+    lens = torch.randint(0, s + 1, (b,), device=cuda, generator=g,
+                         dtype=torch.int32)
+    args = (lens, k1, v1)
+    whole = decode_attn.prefix_decode_attention(q, pool[0], pool[1], *args,
+                                                scale=128 ** -0.5)
+    for win in (s, 1024):
+        got = decode_attn.prefix_decode_attention(
+            q, pool[0, :, :win], pool[1, :, :win], *args, scale=128 ** -0.5)
+        assert torch.equal(got, whole), win
+    assert decode_attn.plan_rows(pool[0, :, :s], pool[1, :, :s]) == 2048
 
 
 def test_decode_step_takes_the_kernel_through_the_dispatcher(cuda):
@@ -1135,6 +1200,30 @@ def test_k1_kernel_takes_fused_and_unaligned_views(cuda, d, causal, dtype):
     assert x.data_ptr() % 16 != 0
     _k1_check(attn.flash_attention(x, x, x),
               attn.flash_attention_ref(x, x, x))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_causal_prompt_rows_do_not_follow_the_bucket(cuda, dtype):
+    """An OPT prompt's rows through the dispatcher take K1 at every
+    bucket, with the same bits at 64, 128 and 256 query rows and in any
+    batch; a prefix's suffix over exactly its cache rows (kv_offset = S -
+    T) gives the rows of the whole prompt."""
+    g = torch.Generator(cuda).manual_seed(17)
+    q, k, v = (torch.randn(4, 256, 32, 128, device=cuda, generator=g)
+               .to(getattr(torch, dtype)) for _ in range(3))
+    before = attn.flash_attention.launches
+    ref = attn.dot_product_attention(q[:1, :64], k[:1, :64], v[:1, :64],
+                                     causal=True)
+    assert attn.flash_attention.launches == before + 1
+    whole = attn.dot_product_attention(q, k, v, causal=True)
+    for b in (1, 4):
+        for t in (64, 128, 256):
+            got = attn.dot_product_attention(q[:b, :t], k[:b, :t], v[:b, :t],
+                                             causal=True)
+            assert torch.equal(got[0, :64], ref[0]), (b, t)
+    suffix = attn.dot_product_attention(q[:, 100:200], k[:, :200], v[:, :200],
+                                        causal=True, kv_offset=100)
+    assert torch.equal(suffix, whole[:, 100:200])
 
 
 def test_unet_call_and_vae_decode_launch_k1_and_k3(cuda):

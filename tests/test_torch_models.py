@@ -213,7 +213,7 @@ def test_retrieval_index_matches_gill_tpu(tmp_path):
     jpaths, jm = jload(str(tmp_path))
     assert paths == jpaths
     np.testing.assert_array_equal(m, jm)
-    ji, ti = JIndex(paths, m, 14.3), TIndex(paths, m, 14.3)
+    ji, ti = JIndex(paths, m, 14.3), TIndex(paths, m, 14.3, device="cpu")
     q = rng.randn(8).astype(np.float32)
     q /= np.linalg.norm(q)
     for seen in ([], [3], [3, 3, 17]):
@@ -223,6 +223,22 @@ def test_retrieval_index_matches_gill_tpu(tmp_path):
         np.testing.assert_allclose(ts, js, rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(ti.scores_for(q, [1, 5]),
                                ji.scores_for(q, [1, 5]), rtol=1e-5)
+
+
+def test_retrieval_index_defaults_to_the_card():
+    """RetrievalIndex, a public entry point, puts its matrix on the card
+    unless the caller names another device (as load_gill does); the CPU
+    tests name the CPU."""
+    import inspect
+
+    sig = inspect.signature(TIndex.__init__)
+    assert sig.parameters["device"].default == "cuda"
+    rng = np.random.RandomState(9)
+    idx = TIndex([f"p{i}" for i in range(5)], rng.randn(5, 4), 2.0,
+                 device="cpu")
+    assert idx.matrix.device.type == "cpu" and idx.n == 5
+    np.testing.assert_allclose(
+        torch.linalg.vector_norm(idx.matrix, dim=1).numpy(), 2.0, rtol=1e-6)
 
 
 def test_from_jax_conv_layout():

@@ -11,11 +11,12 @@ import os
 
 import pytest
 
-from gill_tpu_torch.config import tiny_unet_config
+from gill_tpu_torch.config import OPTConfig, tiny_unet_config
 from gill_tpu_torch.models.sd import unet as unet_mod
 from gill_tpu_torch.scripts import (attn_mxu_probe, attn_sweep, int8_probe,
                                     profile_ln_fuse, profile_prefix_decode,
-                                    profile_sd, profile_sd_ablate, w8_probe)
+                                    profile_sd, profile_sd_ablate,
+                                    profile_specdec, w8_probe)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = tiny_unet_config()
@@ -40,6 +41,14 @@ TINY = {
     "profile_prefix_decode": (profile_prefix_decode, dict(
         configs=[("tiny", 4, 64, 2, 128)], n_lo=1, n_hi=2)),
     "w8_probe": (w8_probe, dict(shapes=[(512, 512), (512, 1024)], reps=2)),
+    "profile_specdec": (profile_specdec, dict(
+        target=OPTConfig(num_layers=2, hidden_size=64, ffn_dim=128,
+                         num_heads=4, vocab_size=128, max_positions=512,
+                         word_embed_proj_dim=64),
+        draft=OPTConfig(num_layers=1, hidden_size=32, ffn_dim=64,
+                        num_heads=2, vocab_size=64, max_positions=512,
+                        word_embed_proj_dim=32),
+        k=4, plen=8, rounds=(1, 2), steps=(2, 4))),
 }
 
 
@@ -170,6 +179,28 @@ def test_w8_probe_rows_follow_the_original(capsys):
     for r in rows:
         ms, gbs = (float(v) for v in r.split()[-2:])
         assert ms > 0 and gbs >= 0
+
+
+def test_profile_specdec_rows_follow_the_original(capsys):
+    """The original's lines (round ms, plain step ms, the acceptance table,
+    the breakeven rate) from the port's round mechanics: k draft steps and
+    one verify a round, on a W8 target and a draft of another width."""
+    rc, lines = _run("profile_specdec", capsys)
+    assert rc == 0
+    assert lines[0].startswith("# device: cpu")
+    assert lines[1].startswith("spec round (K=4, custom W8 + custom draft): ")
+    assert lines[2].startswith("plain decode step (batch 1): ")
+    assert lines[4] == "acceptance -> tokens/s (spec) vs plain:"
+    table = lines[5:5 + len(profile_specdec.ACCEPTANCE)]
+    assert [ln.split(":")[0].strip() for ln in table] == \
+        [f"a={a:.1f}" for a in profile_specdec.ACCEPTANCE]
+    a = float(lines[-1].split("a = ")[1])
+    assert lines[-1].startswith("breakeven acceptance: ") and 0 <= a <= 1
+    # E[tokens/round] at a = 0 is the correction alone, at a -> 1 k tokens
+    assert profile_specdec.tokens_per_round(0.0, 4) == 1.0
+    assert profile_specdec.tokens_per_round(1.0, 4) == 4.0
+    assert profile_specdec.breakeven(4.0, 1.0, 4) == 1.0   # never pays
+    assert profile_specdec.breakeven(1.0, 1.0, 4) < 1e-9   # always pays
 
 
 @pytest.mark.parametrize("name", sorted(TINY))

@@ -19,7 +19,9 @@ from jax.experimental.pallas import tpu as pltpu
 from chip_smoke import W8_SHAPES
 from gill_tpu.ops.w8_matmul import w8_matmul as jw8_matmul
 from gill_tpu_torch.ops.w8_matmul import (BLOCK_KS, BLOCK_NS, H100_SMS,
-                                          w8_matmul, w8_matmul_ref, w8_plan)
+                                          MAX_M, row_windows, w8_matmul,
+                                          w8_matmul_ref, w8_matmul_rows,
+                                          w8_plan)
 
 BF16_ULP = 2.0 ** -7
 
@@ -63,6 +65,44 @@ def test_w8_plan_takes_every_row_count_and_block(m, dtype):
             assert 1024 + p.stages * stage <= 227 * 1024
     # fp32: 128-column strips only; bf16 at M <= 16: stages of >= 128 rows
     assert accepted == (3 if dtype == "float32" else 4 if m <= 16 else 6)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 16384),
+                                 (16384, 4096), (512, 1536)])
+def test_w8_plan_is_one_plan_from_17_to_256_rows(k, n):
+    """bf16 x: every row count from 17 to 256 takes one strip, stage,
+    ring and K split (only the row blocks differ), so a prefill wave's
+    rows are summed in one order whatever its size (the card tests hold
+    the bits)."""
+    first = w8_plan(17, k, n, "bfloat16")
+    for m in range(17, MAX_M + 1):
+        p = w8_plan(m, k, n, "bfloat16")
+        assert p._replace(blocks=0) == first._replace(blocks=0), m
+        assert p.blocks == p.splits * (n // p.block_n) * -(-m // 128)
+
+
+@pytest.mark.parametrize("m", [1, 255, 256, 257, 300, 511, 512, 513, 4096])
+def test_row_windows_cover_every_row_at_the_largest_plan(m):
+    """Up to 256 rows one window; above, windows of exactly 256 rows from
+    row 0 to row m, each after the one before and overlapping it at most
+    at the end, so every row takes the 256-row plan."""
+    wins = row_windows(m)
+    assert wins[0][0] == 0 and wins[-1][1] == m
+    if m <= MAX_M:
+        assert wins == [(0, m)]
+        return
+    assert all(hi - lo == MAX_M for lo, hi in wins)
+    assert all(a[0] < b[0] <= a[1] for a, b in zip(wins, wins[1:]))
+    assert len(wins) == -(-m // MAX_M)
+
+
+def test_w8_matmul_rows_is_the_plain_version_on_the_cpu():
+    """Past 256 rows on the CPU: `w8_matmul_ref`, exactly."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(3, 100, 512, generator=g)
+    w = torch.randint(-127, 128, (512, 512), generator=g, dtype=torch.int8)
+    ws = torch.rand(512, generator=g) * 1e-3
+    assert torch.equal(w8_matmul_rows(x, w, ws), w8_matmul_ref(x, w, ws))
 
 
 @pytest.mark.parametrize("args,exc", [
