@@ -105,7 +105,30 @@
    route, and a registered + extended chat prefix to the whole
    conversation. K4 and K6 must launch in F1-F4 and F6, K1 in F1 and F5.
    Each phase prints its `phase_s`.
-9. Checks: finite outputs of the expected shapes; request (a) gives the
+9. Real-weight loading and the SD text path (slice 12), phase G, after
+   phase D on the main path's trees: (G1) a weights directory in the HF /
+   diffusers layouts, bf16, written with this script's pure-Python
+   safetensors writer (CLIP ViT-L/14 with a random visual projection; SD
+   v1.5 `unet/`, `vae/` with a random encoder, `text_encoder/`, a random
+   `safety_checker/`, `tokenizer/` of `CLIPBPETokenizer.tiny()`), OPT at
+   OPT-6.7B's widths with 4 of its 32 layers as `pytorch_model.bin`, and a
+   reference-format `pretrained_ckpt.pth.tar` of the adapters; (G2)
+   `load_gill(model_dir, weights_dir=)` and `weights.loader.load_opt`:
+   every loaded leaf equal to the tree it was written from, bit for bit,
+   the SD tokenizer and the safety checker present (load s, peak host
+   RSS); (G3) `sd_pipe(prompt=[...])`, 50 PNDM steps, CFG 7.5, 512², the
+   checker on: finite, equal to the same call on the in-memory trees (or
+   within 3e-2 relative), its unconditional embeddings `encode_text([""])`
+   (their distance from the zeros used before printed), the text encoder
+   (K2 at head dim 64, causal, 77 tokens), a UNet call and the VAE decode
+   within 3e-2 relative of their plain-version runs; (G4)
+   `vae.encode` of the image within 3e-2 of its plain run, decode(encode)
+   finite; (G5) the checker's scores within 1e-4 of the plain run, flags
+   equal away from the rounding boundary, thresholds of -10 black every
+   image out; (G6) `get_log_likelihood_scores` within 1e-4 relative of
+   the plain run. K1, K2 and K3 must launch in G3-G6; the phase prints its
+   `phase_s`.
+10. Checks: finite outputs of the expected shapes; request (a) gives the
    same tokens with every kernel swapped for its plain version; CLIP, the
    OPT prefill, one full-width UNet step, the VAE decode and one W8 decode
    step of phase A agree with their plain-version runs within stated
@@ -154,6 +177,7 @@ sys.path.insert(0, REPO)
 
 # the card's peaks, bound(), the event timer and the profiler summary are
 # shared with the probe scripts
+from gill_tpu_torch.nn.core import layer_view  # noqa: E402
 from gill_tpu_torch.scripts._timing import (  # noqa: E402
     PEAK_FLOPS, bound, cold_copies, cuda_ms, cuda_ms_cycled, device_profile,
     smi_line)
@@ -2139,6 +2163,622 @@ def phase_d(torch, dev, model, prompt_b):
 
 
 # ---------------------------------------------------------------------------
+# weight directories (slice 12): a safetensors writer and the inverse maps
+# from this package's trees to HF / diffusers / reference key names
+# ---------------------------------------------------------------------------
+
+_ST_NAMES = {"float64": "F64", "float32": "F32", "float16": "F16",
+             "bfloat16": "BF16", "int64": "I64", "int32": "I32",
+             "int16": "I16", "int8": "I8", "uint8": "U8", "bool": "BOOL"}
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """Pure-Python safetensors writer (the card's machine has no
+    `safetensors` package): an 8-byte little-endian header length, the
+    JSON header (dtype, shape, data_offsets per tensor) padded with spaces
+    to 8 bytes, then each tensor's bytes in order, one tensor at a time on
+    the host."""
+    import struct
+
+    import torch
+
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[str(t.dtype).split(".")[-1]],
+                        "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for t in tensors.values():
+            if t.numel():
+                f.write(t.detach().contiguous().cpu().reshape(-1).view(
+                    torch.uint8).numpy().data)
+
+
+def _put_lin(sd, prefix, p):
+    """(in, out) Linear -> torch's (out, in) weight and bias."""
+    sd[prefix + ".weight"] = p["w"].t().contiguous()
+    if "b" in p:
+        sd[prefix + ".bias"] = p["b"]
+
+
+def _put_norm(sd, prefix, p):
+    sd[prefix + ".weight"] = p["scale"]
+    sd[prefix + ".bias"] = p["bias"]
+
+
+def _put_conv(sd, prefix, p):
+    """OIHW (channels_last memory) -> contiguous OIHW."""
+    sd[prefix + ".weight"] = p["w"].contiguous()
+    if "b" in p:
+        sd[prefix + ".bias"] = p["b"]
+
+
+def opt_to_hf(lm, num_layers: int, vocab_size: int) -> dict:
+    """The first `num_layers` layers of an OPT tree as an HF
+    OPTForCausalLM state dict (the table's first vocab_size rows; the
+    head tied to it). Every tensor is a copy, so torch.save writes no
+    storage beyond it."""
+    sd = {"model.decoder.embed_tokens.weight":
+          lm["embed_tokens"]["weight"][:vocab_size],
+          "model.decoder.embed_positions.weight":
+          lm["embed_positions"]["weight"]}
+    for i in range(num_layers):
+        lp, p = layer_view(lm["layers"], i), f"model.decoder.layers.{i}"
+        for a, n in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                     ("o", "out_proj")):
+            _put_lin(sd, f"{p}.self_attn.{n}", lp["attn"][a])
+        _put_norm(sd, f"{p}.self_attn_layer_norm", lp["attn_ln"])
+        _put_lin(sd, f"{p}.fc1", lp["fc1"])
+        _put_lin(sd, f"{p}.fc2", lp["fc2"])
+        _put_norm(sd, f"{p}.final_layer_norm", lp["mlp_ln"])
+    if "final_ln" in lm:
+        _put_norm(sd, "model.decoder.final_layer_norm", lm["final_ln"])
+    for name in ("project_in", "project_out"):
+        if name in lm:
+            _put_lin(sd, f"model.decoder.{name}", lm[name])
+    sd = {k: v.clone() for k, v in sd.items()}
+    sd["lm_head.weight"] = sd["model.decoder.embed_tokens.weight"]
+    return sd
+
+
+def _clip_layers_to_hf(sd, prefix, layers):
+    for i in range(layers["ln1"]["scale"].shape[0]):
+        lp, p = layer_view(layers, i), f"{prefix}encoder.layers.{i}"
+        _put_norm(sd, f"{p}.layer_norm1", lp["ln1"])
+        for a, n in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                     ("o", "out_proj")):
+            _put_lin(sd, f"{p}.self_attn.{n}", lp["attn"][a])
+        _put_norm(sd, f"{p}.layer_norm2", lp["ln2"])
+        _put_lin(sd, f"{p}.mlp.fc1", lp["fc1"])
+        _put_lin(sd, f"{p}.mlp.fc2", lp["fc2"])
+
+
+def clip_vision_to_hf(vision) -> dict:
+    """A CLIP vision tree as an HF CLIPVisionModel / CLIPModel state dict
+    (`visual_projection.weight` when the tree holds one)."""
+    p = "vision_model."
+    sd = {p + "embeddings.class_embedding": vision["class_embedding"],
+          p + "embeddings.patch_embedding.weight":
+          vision["patch_embedding"]["w"].contiguous(),
+          p + "embeddings.position_embedding.weight":
+          vision["position_embedding"]["weight"]}
+    _put_norm(sd, p + "pre_layrnorm", vision["pre_ln"])
+    _clip_layers_to_hf(sd, p, vision["layers"])
+    _put_norm(sd, p + "post_layernorm", vision["post_ln"])
+    if "visual_projection" in vision:
+        _put_lin(sd, "visual_projection", vision["visual_projection"])
+    return sd
+
+
+def clip_text_to_hf(text) -> dict:
+    sd = {"text_model.embeddings.token_embedding.weight":
+          text["token_embedding"]["weight"],
+          "text_model.embeddings.position_embedding.weight":
+          text["position_embedding"]["weight"]}
+    _clip_layers_to_hf(sd, "text_model.", text["layers"])
+    _put_norm(sd, "text_model.final_layer_norm", text["final_ln"])
+    return sd
+
+
+def safety_to_diffusers(params) -> dict:
+    """A safety-checker tree as diffusers' StableDiffusionSafetyChecker
+    state dict (the tower nested under vision_model.vision_model.)."""
+    vision = {k: v for k, v in params["vision"].items()
+              if k != "visual_projection"}
+    sd = {"vision_model." + k: v for k, v in clip_vision_to_hf(vision).items()}
+    _put_lin(sd, "visual_projection", params["vision"]["visual_projection"])
+    for k in ("concept_embeds", "special_care_embeds",
+              "concept_embeds_weights", "special_care_embeds_weights"):
+        sd[k] = params[k]
+    return sd
+
+
+def _resnet_to_hf(sd, p, r):
+    _put_norm(sd, f"{p}.norm1", r["norm1"])
+    _put_conv(sd, f"{p}.conv1", r["conv1"])
+    _put_norm(sd, f"{p}.norm2", r["norm2"])
+    _put_conv(sd, f"{p}.conv2", r["conv2"])
+    if "time_emb" in r:
+        _put_lin(sd, f"{p}.time_emb_proj", r["time_emb"])
+    if "shortcut" in r:
+        _put_conv(sd, f"{p}.conv_shortcut", r["shortcut"])
+
+
+def _tfm_to_hf(sd, p, a):
+    tb, blk = f"{p}.transformer_blocks.0", a["block"]
+    _put_norm(sd, f"{p}.norm", a["norm"])
+    _put_conv(sd, f"{p}.proj_in", a["proj_in"])
+    for i in (1, 2, 3):
+        _put_norm(sd, f"{tb}.norm{i}", blk[f"ln{i}"])
+    for i in (1, 2):
+        for k, n in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"),
+                     ("o", "to_out.0")):
+            _put_lin(sd, f"{tb}.attn{i}.{n}", blk[f"attn{i}"][k])
+    _put_lin(sd, f"{tb}.ff.net.0.proj", blk["geglu"])
+    _put_lin(sd, f"{tb}.ff.net.2", blk["ff_out"])
+    _put_conv(sd, f"{p}.proj_out", a["proj_out"])
+
+
+def unet_to_diffusers(unet) -> dict:
+    """A UNet tree as a diffusers UNet2DConditionModel state dict."""
+    sd = {}
+    _put_conv(sd, "conv_in", unet["conv_in"])
+    _put_lin(sd, "time_embedding.linear_1", unet["time_fc1"])
+    _put_lin(sd, "time_embedding.linear_2", unet["time_fc2"])
+    for kind, blocks in (("down", unet["down"]), ("up", unet["up"])):
+        for i, blk in enumerate(blocks):
+            p = f"{kind}_blocks.{i}"
+            for j, r in enumerate(blk["resnets"]):
+                _resnet_to_hf(sd, f"{p}.resnets.{j}", r)
+            for j, a in enumerate(blk["attns"]):
+                _tfm_to_hf(sd, f"{p}.attentions.{j}", a)
+            for key, name in (("downsample", "downsamplers"),
+                              ("upsample", "upsamplers")):
+                if key in blk:
+                    _put_conv(sd, f"{p}.{name}.0.conv", blk[key])
+    _resnet_to_hf(sd, "mid_block.resnets.0", unet["mid"]["res1"])
+    _tfm_to_hf(sd, "mid_block.attentions.0", unet["mid"]["attn"])
+    _resnet_to_hf(sd, "mid_block.resnets.1", unet["mid"]["res2"])
+    _put_norm(sd, "conv_norm_out", unet["norm_out"])
+    _put_conv(sd, "conv_out", unet["conv_out"])
+    return sd
+
+
+def _vae_mid_to_hf(sd, p, mid):
+    _resnet_to_hf(sd, f"{p}.mid_block.resnets.0", mid["res1"])
+    a, q = mid["attn"], f"{p}.mid_block.attentions.0"
+    _put_norm(sd, f"{q}.group_norm", a["norm"])
+    for k, n in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"),
+                 ("o", "to_out.0")):
+        _put_lin(sd, f"{q}.{n}", a[k])
+    _resnet_to_hf(sd, f"{p}.mid_block.resnets.1", mid["res2"])
+
+
+def vae_to_diffusers(decoder, encoder=None) -> dict:
+    """VAE decoder (and encoder) trees as a diffusers AutoencoderKL state
+    dict, in the new key style (to_q / group_norm / to_out.0)."""
+    sd = {}
+    _put_conv(sd, "post_quant_conv", decoder["post_quant_conv"])
+    _put_conv(sd, "decoder.conv_in", decoder["conv_in"])
+    _vae_mid_to_hf(sd, "decoder", decoder["mid"])
+    for i, blk in enumerate(decoder["up"]):
+        for j, r in enumerate(blk["resnets"]):
+            _resnet_to_hf(sd, f"decoder.up_blocks.{i}.resnets.{j}", r)
+        if "upsample" in blk:
+            _put_conv(sd, f"decoder.up_blocks.{i}.upsamplers.0.conv",
+                      blk["upsample"])
+    _put_norm(sd, "decoder.conv_norm_out", decoder["norm_out"])
+    _put_conv(sd, "decoder.conv_out", decoder["conv_out"])
+    if encoder is not None:
+        _put_conv(sd, "encoder.conv_in", encoder["conv_in"])
+        for i, blk in enumerate(encoder["down"]):
+            for j, r in enumerate(blk["resnets"]):
+                _resnet_to_hf(sd, f"encoder.down_blocks.{i}.resnets.{j}", r)
+            if "downsample" in blk:
+                _put_conv(sd, f"encoder.down_blocks.{i}.downsamplers.0.conv",
+                          blk["downsample"])
+        _vae_mid_to_hf(sd, "encoder", encoder["mid"])
+        _put_norm(sd, "encoder.conv_norm_out", encoder["norm_out"])
+        _put_conv(sd, "encoder.conv_out", encoder["conv_out"])
+        _put_conv(sd, "quant_conv", encoder["quant_conv"])
+    return sd
+
+
+def _mha_to_hf(sd, p, a):
+    """q/k/v/o -> torch.nn.MultiheadAttention's packed in_proj."""
+    import torch
+
+    sd[f"{p}.in_proj_weight"] = torch.cat([a[k]["w"].t() for k in "qkv"])
+    sd[f"{p}.in_proj_bias"] = torch.cat([a[k]["b"] for k in "qkv"])
+    _put_lin(sd, f"{p}.out_proj", a["o"])
+
+
+def mapper_to_hf(sd, prefix: str, m) -> None:
+    """A mapper tree as the reference TextFcLayer's keys under `prefix`."""
+    if "fc" not in m:                                   # linear mode
+        _put_lin(sd, prefix + "model", m["model"])
+        return
+    _put_lin(sd, prefix + "fc", m["fc"])
+    for side in ("encoder", "decoder"):
+        t = m["tfm"][side]
+        for i in range(t["layers"]["ln1"]["scale"].shape[0]):
+            lp, p = layer_view(t["layers"], i), f"{prefix}tfm.{side}.layers.{i}"
+            _mha_to_hf(sd, f"{p}.self_attn", lp["self_attn"])
+            if side == "decoder":
+                _mha_to_hf(sd, f"{p}.multihead_attn", lp["cross_attn"])
+            for n in (1, 2, 3) if side == "decoder" else (1, 2):
+                _put_norm(sd, f"{p}.norm{n}", lp[f"ln{n}"])
+            _put_lin(sd, f"{p}.linear1", lp["fc1"])
+            _put_lin(sd, f"{p}.linear2", lp["fc2"])
+        _put_norm(sd, f"{prefix}tfm.{side}.norm", t["norm"])
+    _put_lin(sd, prefix + "model", m["model"])
+    sd[prefix + "query_embs"] = m["query_embs"]
+
+
+def adapters_to_reference(adapters, core, table) -> dict:
+    """Adapters as the reference's pretrained_ckpt.pth.tar state_dict
+    (DDP `module.` prefixes; `table` is the LM's input embedding table,
+    whose last num_tokens rows the loader takes as the [IMG] rows)."""
+    sd = {"model.input_embeddings.weight": table,
+          "model.logit_scale": adapters["logit_scale"]}
+    _put_lin(sd, "model.visual_embeddings", adapters["visual_embeddings"])
+    _put_lin(sd, "model.visual_fc", adapters["visual_fc"])
+    for i, (suffix, _, _) in enumerate(core.tap_specs()):
+        mapper_to_hf(sd, f"model.ret_text_hidden_fcs.{i}.",
+                     adapters[f"ret_fc{suffix}"])
+        mapper_to_hf(sd, f"model.gen_text_hidden_fcs.{i}.",
+                     adapters[f"gen_fc{suffix}"])
+    return {"module." + k: v.detach().cpu().clone() for k, v in sd.items()}
+
+
+def tree_mismatches(torch, got, want, path: str = "") -> list:
+    """The paths where two trees differ in structure, shape, dtype or any
+    bit of a leaf."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return [f"{path}: keys {sorted(got) if isinstance(got, dict) else type(got)} "
+                    f"vs {sorted(want)}"]
+        return [m for k in want
+                for m in tree_mismatches(torch, got[k], want[k], f"{path}/{k}")]
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            return [f"{path}: length"]
+        return [m for i, (a, b) in enumerate(zip(got, want))
+                for m in tree_mismatches(torch, a, b, f"{path}/{i}")]
+    if (got.shape != want.shape or got.dtype != want.dtype
+            or not torch.equal(got.reshape(-1).view(torch.uint8),
+                               want.reshape(-1).view(torch.uint8))):
+        return [f"{path}: {tuple(got.shape)} {got.dtype} vs "
+                f"{tuple(want.shape)} {want.dtype}"]
+    return []
+
+
+class RssPeak:
+    """The process's peak resident set (VmRSS, GiB) inside a `with` block,
+    sampled every 20 ms by a thread, beside its value on entry."""
+
+    def __enter__(self):
+        import threading
+
+        self.base = self.peak = self.read()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def read() -> float:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 2**20
+        return 0.0
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self.read())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.read())
+
+
+def write_weights_dir(torch, root: str, *, vision, unet, vae_decoder,
+                      vae_encoder, text_encoder, checker, lm, opt_layers: int,
+                      opt_vocab: int, opt_name: str, core, adapters) -> dict:
+    """A weights directory in the HF / diffusers layouts `load_gill(
+    weights_dir=)` reads, and a model directory with model_args.json and a
+    reference-format pretrained_ckpt.pth.tar, all written from trees in
+    memory. Returns {"weights": ..., "model": ...} paths."""
+    from gill_tpu_torch.tokenizer import CLIPBPETokenizer
+
+    wdir, mdir = os.path.join(root, "weights"), os.path.join(root, "model")
+    sd_dir = os.path.join(wdir, "stable-diffusion-v1-5")
+    clip_dir = os.path.join(wdir, core.cfg.visual_encoder.split("/")[-1])
+    for d in (mdir, clip_dir, os.path.join(wdir, opt_name),
+              *(os.path.join(sd_dir, s) for s in (
+                  "unet", "vae", "text_encoder", "tokenizer",
+                  "safety_checker"))):
+        os.makedirs(d, exist_ok=True)
+    write_safetensors(os.path.join(clip_dir, "model.safetensors"),
+                      clip_vision_to_hf(vision))
+    write_safetensors(os.path.join(sd_dir, "unet",
+                                   "diffusion_pytorch_model.safetensors"),
+                      unet_to_diffusers(unet))
+    write_safetensors(os.path.join(sd_dir, "vae",
+                                   "diffusion_pytorch_model.safetensors"),
+                      vae_to_diffusers(vae_decoder, vae_encoder))
+    write_safetensors(os.path.join(sd_dir, "text_encoder",
+                                   "model.safetensors"),
+                      clip_text_to_hf(text_encoder))
+    write_safetensors(os.path.join(sd_dir, "safety_checker",
+                                   "model.safetensors"),
+                      safety_to_diffusers(checker))
+    tok = CLIPBPETokenizer.tiny()
+    with open(os.path.join(sd_dir, "tokenizer", "vocab.json"), "w") as f:
+        json.dump(tok.encoder, f)
+    with open(os.path.join(sd_dir, "tokenizer", "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    torch.save(opt_to_hf(lm, opt_layers, opt_vocab),
+               os.path.join(wdir, opt_name, "pytorch_model.bin"))
+    nt = core.cfg.num_tokens
+    table = torch.cat([lm["embed_tokens"]["weight"][:-nt].float(),
+                       adapters["img_embeddings"].float()])
+    torch.save({"state_dict": adapters_to_reference(adapters, core, table)},
+               os.path.join(mdir, "pretrained_ckpt.pth.tar"))
+    core.cfg.to_json(os.path.join(mdir, "model_args.json"))
+    return {"weights": wdir, "model": mdir}
+
+
+def _dir_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(root) for f in fs)
+
+
+def phase_g(torch, dev, model):
+    """Slice 12 (docstring item 9): a weights directory written from the
+    main path's trees (G1), `load_gill(weights_dir=)` held to them bit for
+    bit (G2), a text prompt through the SD text path with the safety
+    checker (G3), VAE encode (G4), the checker's scores (G5) and the
+    log-likelihood scorer (G6). Launch counts are set to 0 after the load
+    and read after G6."""
+    import dataclasses
+
+    import numpy as np
+    from PIL import Image
+
+    from gill_tpu_torch.api import load_gill
+    from gill_tpu_torch.models import safety as safety_mod
+    from gill_tpu_torch.models.sd import unet as unet_mod
+    from gill_tpu_torch.models.sd import vae as vae_mod
+    from gill_tpu_torch.models.sd.pipeline import StableDiffusionPipeline
+    from gill_tpu_torch.nn.core import Init, tree_map
+    from gill_tpu_torch.weights import loader as wloader
+
+    rep, failures = {}, []
+    t_phase = time.perf_counter()
+    core, pipe = model.core, model.sd_pipe
+    lm, adapters = model.params["lm"], model.params["adapters"]
+    bf16, size = torch.bfloat16, pipe.cfg.default_size
+    # the trees the main path lacks: CLIP's visual projection, a VAE
+    # encoder and a safety checker, random from their own generator
+    init = Init(torch.Generator(dev).manual_seed(41), dev, bf16)
+    checker_cfg = safety_mod.SafetyCheckerConfig()
+    vision = dict(model.params["vision"])
+    vision["visual_projection"] = {"w": init.normal(
+        (core.vis_cfg.hidden_size, checker_cfg.projection_dim), 0.02)}
+    vae_enc = vae_mod.init_encoder(init, pipe.cfg.vae)
+    checker = safety_mod.init(init, checker_cfg)
+    n_opt, vocab = min(4, core.opt_cfg.num_layers), core.opt_cfg.vocab_size
+    opt_name = f"opt-6.7b-{n_opt}-layers"
+    log(f"phase G: OPT is written at OPT-6.7B's widths with {n_opt} of its "
+        f"{core.opt_cfg.num_layers} layers (the cut keeps a ~13 GB write out "
+        f"of the run) and read with weights.loader.load_opt; load_gill "
+        f"finds no OPT directory and keeps its random full-depth OPT")
+
+    with tempfile.TemporaryDirectory(prefix="gill_weights_") as root:
+        # G1: write
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            dirs = write_weights_dir(
+                torch, root, vision=vision, unet=pipe.params["unet"],
+                vae_decoder=pipe.params["vae_decoder"], vae_encoder=vae_enc,
+                text_encoder=pipe.params["text_encoder"], checker=checker,
+                lm=lm, opt_layers=n_opt, opt_vocab=vocab, opt_name=opt_name,
+                core=core, adapters=adapters)
+            rep["g1_write_s"] = time.perf_counter() - t0
+        rep["g1_written_gib"] = _dir_bytes(root) / 2**30
+        rep["g1_rss_gib_before_peak"] = [rss.base, rss.peak]
+
+        # G2: load, and hold every loaded leaf to the tree it was written from
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            loaded = load_gill(dirs["model"], device=dev,
+                               weights_dir=dirs["weights"],
+                               load_ret_embs=False, decision_model_fn=None,
+                               dtype=bf16, seed=0)
+            opt4 = wloader.load_opt(
+                opt_name, dataclasses.replace(core.opt_cfg,
+                                              num_layers=n_opt),
+                core.vocab_len, dirs["weights"], device=dev, dtype=bf16)
+            torch.cuda.synchronize()
+            rep["g2_load_s"] = time.perf_counter() - t0
+        rep["g2_rss_gib_before_peak"] = [rss.base, rss.peak]
+    lpipe = loaded.sd_pipe
+    want_opt = {"embed_tokens": {"weight": lm["embed_tokens"]["weight"][:vocab]},
+                "embed_positions": lm["embed_positions"],
+                "layers": tree_map(lambda x: x[:n_opt], lm["layers"]),
+                "final_ln": lm["final_ln"]}
+    got_opt = dict(opt4, embed_tokens={
+        "weight": opt4["embed_tokens"]["weight"][:vocab]})
+    pairs = {
+        "clip_vision": (loaded.params["vision"], vision),
+        "adapters": (loaded.params["adapters"], adapters),
+        "unet": (lpipe.params["unet"], pipe.params["unet"]),
+        "vae_decoder": (lpipe.params["vae_decoder"],
+                        pipe.params["vae_decoder"]),
+        "vae_encoder": (lpipe.params.get("vae_encoder"), vae_enc),
+        "text_encoder": (lpipe.params["text_encoder"],
+                         pipe.params["text_encoder"]),
+        "safety_checker": (getattr(lpipe.safety_checker, "params", None),
+                           checker),
+        "opt_4_layers": (got_opt, want_opt)}
+    rep["g2_mismatched_leaves"] = {}
+    for name, (got, want) in pairs.items():
+        bad = (["missing"] if got is None else
+               tree_mismatches(torch, got, want))
+        rep["g2_mismatched_leaves"][name] = len(bad)
+        if bad:
+            failures.append(f"G2 loaded {name} differs from the written "
+                            f"tree: {bad[:4]}")
+    if opt4["embed_tokens"]["weight"].shape[0] != max(vocab, core.vocab_len):
+        failures.append("G2 load_opt did not grow the table to the vocab")
+    if lpipe.tokenizer is None or lpipe.safety_checker is None:
+        failures.append("G2 load_gill loaded no SD tokenizer or no safety "
+                        "checker")
+    del loaded, opt4, got_opt, want_opt, pairs
+    torch.cuda.empty_cache()
+    log(f"phase G load: {json.dumps(rep)}")
+    if failures:
+        return rep, failures
+
+    # G3: generate from text, 50 PNDM steps at CFG 7.5, the checker on
+    prompt = ["a red canoe near the shore of a lake at sunset"]
+    mem_pipe = StableDiffusionPipeline(
+        pipe.cfg, dict(pipe.params, vae_encoder=vae_enc),
+        tokenizer=lpipe.tokenizer,
+        safety_checker=safety_mod.SafetyChecker(checker_cfg, checker))
+    seen = []
+
+    def capture(latents):
+        seen.append(latents)
+        return type(lpipe).decode_latents(lpipe, latents)
+
+    def generate(p):
+        return p(prompt=prompt, num_inference_steps=50, guidance_scale=7.5,
+                 generator=torch.Generator(dev).manual_seed(5))
+
+    zero_launches()
+    lpipe.decode_latents = capture
+    img, rep["g3_gen512_prompt_50step_s"] = timed(torch,
+                                                 lambda: generate(lpipe))
+    del lpipe.decode_latents
+    img_mem = generate(mem_pipe)
+    rep["g3_bitwise_equal_in_memory"] = bool(torch.equal(img, img_mem))
+    rep["g3_rel_err_vs_in_memory"] = rel_err(torch, img, img_mem)
+    if not _finite_image(torch, img, size):
+        failures.append("G3 gave no finite image")
+    if not (rep["g3_bitwise_equal_in_memory"]
+            or rep["g3_rel_err_vs_in_memory"] <= 3e-2):
+        failures.append(f"G3 image differs from the in-memory trees': "
+                        f"{rep['g3_rel_err_vs_in_memory']}")
+    uncond, empty = lpipe._uncond_embeds(1), lpipe.encode_text([""])
+    rep["g3_uncond_equal_encoded_empty"] = bool(torch.equal(uncond, empty))
+    rep["g3_uncond_max_abs_vs_zeros"] = float(uncond.float().abs().max())
+    if not rep["g3_uncond_equal_encoded_empty"]:
+        failures.append("G3 unconditional embeddings are not encode_text('')")
+    ctx = torch.cat([uncond, lpipe.encode_text(prompt)]).to(bf16)
+    g = torch.Generator(dev).manual_seed(43)
+    hl = size // pipe.cfg.vae_scale
+    lat = torch.randn(2, hl, hl, 4, device=dev, generator=g).to(bf16)
+    t = torch.tensor(981.0, device=dev)
+
+    def both(fn):
+        a = fn()
+        with plain_kernels():
+            b = fn()
+        torch.cuda.synchronize()
+        return a, b
+
+    # the 77-token causal text tower takes K2 (head dim 64) on the card
+    before = read_launches()["flash_mma"]
+    a, b = both(lambda: lpipe.encode_text(prompt))
+    rep["g3_encode_text_k2_launches"] = read_launches()["flash_mma"] - before
+    rep["g3_encode_text_rel_err_vs_plain"] = rel_err(torch, a, b)
+    if rep["g3_encode_text_k2_launches"] <= 0:
+        failures.append("G3's text encoder did not launch K2")
+    a, b = both(lambda: unet_mod.apply(lpipe.params["unet"], pipe.cfg.unet,
+                                       lat, t, ctx))
+    rep["g3_unet_rel_err_vs_plain"] = rel_err(torch, a, b)
+    a, b = both(lambda: lpipe.decode_latents(seen[0]))
+    rep["g3_vae_decode_rel_err_vs_plain"] = rel_err(torch, a, b)
+
+    # G4: VAE encode of G3's image (the posterior's mean)
+    x = (img * 2 - 1).to(bf16)
+    enc_p = lpipe.params["vae_encoder"]
+    a, b = both(lambda: vae_mod.encode(enc_p, pipe.cfg.vae, x))
+    rep["g4_encode_rel_err_vs_plain"] = rel_err(torch, a, b)
+    rt = vae_mod.decode(lpipe.params["vae_decoder"], pipe.cfg.vae, a)
+    if tuple(a.shape) != (1, hl, hl, 4) \
+            or not bool(torch.isfinite(rt).all()) \
+            or tuple(rt.shape) != (1, size, size, 3):
+        failures.append("G4 encode / decode(encode) gave no finite result "
+                        "of the expected shape")
+    for key in ("g3_encode_text_rel_err_vs_plain", "g3_unet_rel_err_vs_plain",
+                "g3_vae_decode_rel_err_vs_plain",
+                "g4_encode_rel_err_vs_plain"):
+        if not rep[key] <= 3e-2:
+            failures.append(f"{key} {rep[key]} > 3e-2")
+
+    # G5: the checker's scores on G3's image and three random ones
+    chk = lpipe.safety_checker
+    imgs = torch.cat([img, torch.rand(3, size, size, 3, device=dev,
+                                      generator=g)])
+    (sa, ca), (sb, cb) = both(lambda: safety_mod.scores(chk.params, chk.cfg,
+                                                        imgs))
+    tol = 1e-4
+    rep["g5_score_max_abs_err_vs_plain"] = max(
+        float((sa - sb).abs().max()), float((ca - cb).abs().max()))
+    _, fa = safety_mod.check_images(chk.params, chk.cfg, imgs)
+    with plain_kernels():
+        _, fb = safety_mod.check_images(chk.params, chk.cfg, imgs)
+    # round3(s) > 0 flips at s = 5e-4: compare flags only away from it
+    adj = torch.where(((sb * 1000).round() / 1000 > 0).any(1), 0.01, 0.0)
+    margin = torch.cat([(sb - 5e-4).abs(),
+                        (cb + adj[:, None] - 5e-4).abs()], 1).amin(1)
+    clear = margin > tol
+    rep["g5_flags"] = fa.tolist()
+    rep["g5_flags_compared"] = int(clear.sum())
+    if not rep["g5_score_max_abs_err_vs_plain"] <= tol:
+        failures.append(f"G5 scores differ from the plain run by "
+                        f"{rep['g5_score_max_abs_err_vs_plain']} > {tol}")
+    if not bool((fa == fb)[clear].all()):
+        failures.append("G5 flags differ from the plain run")
+    hot = dict(chk.params, concept_embeds_weights=chk.params[
+        "concept_embeds_weights"] - 10)
+    out, flags = safety_mod.check_images(hot, chk.cfg, imgs)
+    if not (bool(flags.all()) and bool((out == 0).all())):
+        failures.append("G5 thresholds of -10 did not black out every image")
+
+    # G6: the log-likelihood scorer on the main-path model
+    pil = Image.fromarray((img[0].float().cpu().numpy() * 255).round()
+                          .astype(np.uint8))
+    prompts = [pil, "A red canoe near the shore of a lake at sunset, with "
+                    "pine trees and a small wooden dock."]
+    before = read_launches()["flash_attention"]
+    a, b = both(lambda: model.get_log_likelihood_scores(prompts))
+    rep["g6_k1_launches"] = read_launches()["flash_attention"] - before
+    if rep["g6_k1_launches"] <= 0:
+        failures.append("G6's causal prefill did not launch K1")
+    rep["g6_log_likelihood"] = a
+    rep["g6_rel_err_vs_plain"] = abs(a - b) / max(abs(b), 1e-30)
+    if not (math.isfinite(a) and rep["g6_rel_err_vs_plain"] <= 1e-4):
+        failures.append(f"G6 score {a} against the plain run's {b}")
+    rep["launches"] = launches = read_launches()
+    for name in ("flash_attention", "flash_mma", "geglu_ff"):
+        if launches[name] <= 0:
+            failures.append(f"{name} was not launched in phase G")
+    rep["phase_s"] = time.perf_counter() - t_phase
+    return rep, failures
+
+
+# ---------------------------------------------------------------------------
 # probe scripts (slice 4)
 # ---------------------------------------------------------------------------
 
@@ -2551,6 +3191,10 @@ def main() -> int:
         d_report["wall_s"] = time.perf_counter() - t0
         failures += d_failures
         log("SD modes phase D:", json.dumps(d_report))
+        torch.cuda.empty_cache()
+        g_report, g_failures = phase_g(torch, dev, model)
+        failures += g_failures
+        log("weights phase G:", json.dumps(g_report))
         del model
         torch.cuda.empty_cache()
         t0 = time.perf_counter()

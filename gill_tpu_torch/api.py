@@ -24,9 +24,12 @@ chat sessions) serve interleaved prompts through the thread-owned online
 GILL engine (serve/online.py `GillOnlineEngine`): concurrent callers share
 its slot pool and stream their tokens.
 
-Not ported yet: get_log_likelihood_scores, the safety checker, the
-HF/diffusers weight loaders and the reference `.pth.tar` adapter
-checkpoint.
+`load_gill(weights_dir=)` reads the frozen backbones from local HF /
+diffusers directories (weights/loader.py's search rules, with
+GILL_TPU_WEIGHTS_DIR), the SD tokenizer and safety checker from the
+diffusers layout, and the reference's `pretrained_ckpt.pth.tar` adapters;
+`get_log_likelihood_scores` scores an interleaved sequence. Not ported
+yet: `GILL.__call__` (its non-generate branch is the training forward).
 """
 
 from __future__ import annotations
@@ -534,6 +537,19 @@ class GILL:
         return [Image.fromarray((a * 255).round().astype(np.uint8))
                 for a in arr]
 
+    def get_log_likelihood_scores(self, prompts: List) -> float:
+        """-CE of the interleaved sequence under the LM, image positions
+        label-masked (reference models.py:764-807): one causal forward of
+        the whole sequence with the tied head (the [IMG] rows swapped in)."""
+        from gill_tpu_torch.models import opt as opt_mod
+
+        embs, ids = self._encode_prompts(prompts)
+        out = opt_mod.forward(self.params["lm"], self.core.opt_cfg, embs,
+                              lm_head=self.core.lm_head_table(self.params))
+        loss = opt_mod.loss_fn(out["logits"],
+                               torch.from_numpy(ids).to(self.device))
+        return -float(loss)
+
 
 def _to_device(tree, device, dtype=None):
     """numpy / tensor leaves -> tensors on `device` (floating leaves cast to
@@ -542,38 +558,43 @@ def _to_device(tree, device, dtype=None):
         t = torch.as_tensor(np.asarray(x)) if not torch.is_tensor(x) else x
         if dtype is not None and torch.is_floating_point(t):
             t = t.to(dtype)
-        return t.to(device)
+        return t.to(device).contiguous()
     return tree_map(one, tree)
 
 
 def load_gill(model_dir: str, *, device="cuda", load_ret_embs: bool = True,
               decision_model_fn: Optional[str] = "decision_model.pth.tar",
-              load_sd: bool = True, num_gen_images: int = 1,
-              dtype=torch.bfloat16, seed: int = 0,
+              weights_dir: Optional[str] = None, load_sd: bool = True,
+              num_gen_images: int = 1, dtype=torch.bfloat16, seed: int = 0,
               lm_weight_precision: str = "bf16",
               kv_cache_precision: str = "bf16",
               sd_precision: str = "bf16") -> GILL:
-    """Builds an inference GILL from a checkpoint directory: model_args.json,
-    the tokenizer, the npz adapter checkpoint (`ckpt/state.npz`), the
-    pickled cc3m*.npy retrieval blobs and the decision model (reference
+    """Builds an inference GILL from a reference-format checkpoint
+    directory: model_args.json, the tokenizer, the adapters
+    (`pretrained_ckpt.pth.tar`, else the npz `ckpt/state.npz`, else random),
+    the pickled cc3m*.npy retrieval blobs and the decision model (reference
     load_gill, gill/models.py:810-902; gill_tpu/api.py load_gill).
 
-    The frozen backbones (OPT, CLIP ViT, SD) take random weights with
-    gill_tpu's init distributions, made on `device` from a torch.Generator
-    seeded with `seed`, in `dtype`; missing adapters are random too. The
-    adapters stay fp32. GILL_TPU_TINY_SD=1 selects the tiny SD config (the
-    CPU smoke-test escape hatch of gill_tpu). The model runs on the card
-    unless `device` names another (the CPU tests pass "cpu");
-    lm_weight_precision / kv_cache_precision as in GILL. sd_precision:
-    "bf16" or "int8", the opt-in W8A8 SD UNet (unet.quantize_params)."""
-    from gill_tpu_torch.models import clip as clip_mod
-    from gill_tpu_torch.models.sd import unet as unet_mod
-    from gill_tpu_torch.models.sd import vae as vae_mod
+    The frozen backbones come from `weights_dir` or GILL_TPU_WEIGHTS_DIR
+    (weights/loader.py: OPT and CLIP from `<root>/<org>--<name>/` or
+    `<root>/<name>/`, SD v1.5 from `<root>/stable-diffusion-v1-5/` in the
+    diffusers layout with its `tokenizer/` and `safety_checker/`), in
+    `dtype` on `device`. What is not found takes random weights with
+    gill_tpu's init distributions from a torch.Generator on `device`
+    seeded with `seed`, with a warning; the [IMG] rows added to the
+    embedding table come from that generator too. The adapters stay fp32.
+    GILL_TPU_TINY_SD=1 selects the tiny SD config (the CPU smoke-test
+    escape hatch of gill_tpu). The model runs on the card unless `device`
+    names another (the CPU tests pass "cpu"); lm_weight_precision /
+    kv_cache_precision as in GILL. sd_precision: "bf16" or "int8", the
+    opt-in W8A8 SD UNet (unet.quantize_params), of loaded or random
+    weights."""
     from gill_tpu_torch.models.sd.pipeline import StableDiffusionPipeline
     from gill_tpu_torch.retrieval import RetrievalIndex, load_embeddings
     from gill_tpu_torch.tokenizer import (GPT2BPETokenizer, load_tokenizer,
                                           setup_gill_tokenizer)
     from gill_tpu_torch.utils import ckpt as ckpt_utils
+    from gill_tpu_torch.weights import loader as wloader
 
     if sd_precision not in ("bf16", "int8"):
         raise ValueError(f"sd_precision {sd_precision!r}")
@@ -590,20 +611,20 @@ def load_gill(model_dir: str, *, device="cuda", load_ret_embs: bool = True,
                           bos_token_id=tokenizer.bos_token_id)
 
     gen = torch.Generator(device).manual_seed(seed)
-    init = Init(gen, device, dtype)
-    print(f"WARNING: random {cfg.opt_version} / {cfg.visual_encoder} "
-          f"weights (seed {seed}); loading HF weights is not ported yet.")
-    from gill_tpu_torch.models import opt as opt_mod
+    lm = wloader.load_opt(cfg.opt_version, core.opt_cfg, len(tokenizer),
+                          weights_dir, device=device, dtype=dtype,
+                          generator=gen)
+    vision = wloader.load_clip_vision(cfg.visual_encoder, core.vis_cfg,
+                                      weights_dir, device=device, dtype=dtype,
+                                      generator=gen)
 
-    lm = opt_mod.resize_embeddings(opt_mod.init(init, core.opt_cfg),
-                                   len(tokenizer), init)
-    vision = clip_mod.init_vision(init, core.vis_cfg)
-
-    if os.path.exists(os.path.join(model_dir, "pretrained_ckpt.pth.tar")):
-        raise NotImplementedError(
-            "reference pretrained_ckpt.pth.tar adapters are not ported yet")
+    ckpt_path = os.path.join(model_dir, "pretrained_ckpt.pth.tar")
     npz = os.path.join(model_dir, "ckpt")
-    if os.path.exists(os.path.join(npz, "state.npz")):
+    if os.path.exists(ckpt_path):
+        adapters = _to_device(
+            ckpt_utils.load_reference_gill_checkpoint(ckpt_path, core),
+            device, torch.float32)
+    elif os.path.exists(os.path.join(npz, "state.npz")):
         tree, _ = ckpt_utils.load_checkpoint(npz)
         adapters = _to_device(tree["adapters"], device, torch.float32)
     else:
@@ -636,18 +657,16 @@ def load_gill(model_dir: str, *, device="cuda", load_ret_embs: bool = True,
             sd_cfg.text.max_positions = cfg.num_clip_tokens
         else:
             sd_cfg = SDPipelineConfig()
-        print("WARNING: random-init SD pipeline (diffusers weights are not "
-              "ported yet).")
-        sd_params = {
-            "unet": unet_mod.init(init, sd_cfg.unet),
-            "vae_decoder": vae_mod.init_decoder(init, sd_cfg.vae),
-            "text_encoder": clip_mod.init_text(init, sd_cfg.text),
-        }
+        sd_params, sd_tok, checker = wloader.load_sd(
+            "stable-diffusion-v1-5", sd_cfg, weights_dir, device=device,
+            dtype=dtype, generator=gen)
         sd_pipe = StableDiffusionPipeline(
-            sd_cfg, sd_params, quantize=(sd_precision == "int8"))
+            sd_cfg, sd_params, tokenizer=sd_tok, safety_checker=checker,
+            quantize=(sd_precision == "int8"))
 
     return GILL(core, params, tokenizer, device=device, sd_pipe=sd_pipe,
                 retrieval_index=index, decision_params=decision_params,
                 num_gen_images=num_gen_images,
                 lm_weight_precision=lm_weight_precision,
                 kv_cache_precision=kv_cache_precision)
+

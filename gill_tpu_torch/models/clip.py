@@ -92,6 +92,17 @@ def vision_forward(params, cfg: CLIPVisionConfig, pixel_values):
     return {"last_hidden": h, "pooler_output": pooled}
 
 
+def get_image_features(params, cfg: CLIPVisionConfig, pixel_values):
+    """pooler_output -> CLIP's joint space through `visual_projection`
+    (HF CLIPModel.get_image_features; the evals' similarity metric,
+    reference evals/compute_clip_similarity_vist.py:40-51)."""
+    if "visual_projection" not in params:
+        raise KeyError("load full CLIP weights (with visual_projection) for "
+                       "image features")
+    pooled = vision_forward(params, cfg, pixel_values)["pooler_output"]
+    return nn.linear(params["visual_projection"], pooled)
+
+
 # ---------------------------------------------------------------------------
 # text tower
 # ---------------------------------------------------------------------------
@@ -108,7 +119,10 @@ def init_text(init: nn.Init, cfg: CLIPTextConfig):
 
 def text_forward(params, cfg: CLIPTextConfig, input_ids):
     """input_ids: (B, T). Returns "last_hidden" (B, T, D) and
-    "pooler_output" (B, D) at the first EOT position."""
+    "pooler_output" (B, D) at the first EOT position. The causal attention
+    goes through the dispatcher, whose causal rule takes a CUDA prompt to
+    the flash kernel at any length (gill_tpu's >= 256-key gate keeps its
+    77 tokens on the XLA path; the two compute the same function)."""
     t = input_ids.shape[1]
     h = params["token_embedding"]["weight"][input_ids]
     h = h + params["position_embedding"]["weight"][:t][None].to(h.dtype)

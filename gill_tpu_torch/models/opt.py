@@ -362,3 +362,17 @@ def forward(params, cfg: OPTConfig, inputs_embeds, *,
     if cache is not None:
         out["cache"] = cache
     return out
+
+
+def loss_fn(logits, labels, ignore_index: int = -100):
+    """Shifted next-token cross-entropy, targets equal to `ignore_index`
+    masked, mean over the valid ones (HF CausalLMOutput.loss, reference
+    main.py:508; gill_tpu opt.loss_fn)."""
+    logits = logits[:, :-1, :]
+    targets = labels[:, 1:].long()
+    valid = targets != ignore_index
+    safe = torch.where(valid, targets, torch.zeros_like(targets))
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / valid.sum().clamp_min(1)

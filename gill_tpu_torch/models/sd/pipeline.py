@@ -1,14 +1,21 @@
-"""Stable Diffusion v1.5 text-to-image pipeline driven by prompt
-embeddings (counterpart of gill_tpu/models/sd/pipeline.py).
+"""Stable Diffusion v1.5 text-to-image pipeline (counterpart of
+gill_tpu/models/sd/pipeline.py).
 
-`prompt_embeds` bypass the text encoder so GILLMapper outputs condition
-the UNet directly (reference gill/custom_sd.py:265,489,594-604). With
-guidance_scale > 1 the UNet runs on the CFG batch [uncond, cond]; the
-unconditional embeddings are `negative_prompt_embeds` or zeros (the case
-of gill_tpu's pipeline without an SD tokenizer). The 50-step PNDM loop is a
-Python loop; the scheduler math runs in fp32 on fp32 latents, while the
-UNet and the VAE run in their parameters' dtype. Latents come from an
-explicit `torch.Generator` or are passed in.
+The reference's forked diffusers pipeline (gill/custom_sd.py:51-666) with
+its three deltas: (1) `prompt_embeds` bypass the text encoder so
+GILLMapper outputs condition the UNet directly (custom_sd.py:265,489,
+594-604); (2) `return_prompts_only` returns after the prompt encoding (the
+SD-embedding precompute path, custom_sd.py:496,589-591); (3)
+`truncate_side='left'|'right'` truncation of the tokenizer (custom_sd.py:90).
+A text `prompt` goes through the SD tokenizer and the CLIP text encoder.
+With guidance_scale > 1 the UNet runs on the CFG batch [uncond, cond]; the
+unconditional embeddings are `negative_prompt_embeds`, else the encoded
+"" when a tokenizer and a text encoder are loaded, else zeros (gill_tpu's
+`_uncond_embeds`). The 50-step PNDM loop is a Python loop; the scheduler
+math runs in fp32 on fp32 latents, while the UNet and the VAE run in their
+parameters' dtype. Latents come from an explicit `torch.Generator` or are
+passed in. An optional safety checker (models/safety.py) runs on the
+decoded images.
 
 `quantize=True` is the opt-in W8A8 UNet (sd_precision="int8",
 unet.quantize_params, ops/quant.py); `sampler="dpm++"` takes DPM-Solver++
@@ -23,6 +30,7 @@ from typing import Optional
 import torch
 
 from gill_tpu_torch.config import SDPipelineConfig
+from gill_tpu_torch.models import clip as clip_mod
 from gill_tpu_torch.models.sd import unet as unet_mod
 from gill_tpu_torch.models.sd import vae as vae_mod
 from gill_tpu_torch.models.sd.scheduler import SAMPLERS, PNDMScheduler
@@ -30,19 +38,26 @@ from gill_tpu_torch.nn.core import tree_leaves
 
 
 class StableDiffusionPipeline:
-    def __init__(self, cfg: SDPipelineConfig, params: dict,
+    def __init__(self, cfg: SDPipelineConfig, params: dict, tokenizer=None,
                  scheduler: Optional[PNDMScheduler] = None,
-                 quantize: bool = False, sampler: str = "pndm"):
-        """params: {"unet", "vae_decoder", optional "text_encoder"}.
-        quantize: quantize the UNet's convs and linears once, here
-        (unet.quantize_params). sampler: "pndm" (the reference's) or
-        "dpm++"; an explicit `scheduler` overrides it."""
+                 safety_checker=None, quantize: bool = False,
+                 sampler: str = "pndm"):
+        """params: {"unet", "vae_decoder", optional "text_encoder",
+        optional "vae_encoder"}. tokenizer: the SD prompt tokenizer
+        (tokenizer.CLIPBPETokenizer) or None. safety_checker: None or a
+        callable images (B, H, W, 3) in [0, 1] -> (images, has_nsfw list),
+        run after the decode (models/safety.py SafetyChecker; reference
+        custom_sd.py:653-661). quantize: quantize the UNet's convs and
+        linears once, here (unet.quantize_params). sampler: "pndm" (the
+        reference's) or "dpm++"; an explicit `scheduler` overrides it."""
         self.cfg = cfg
         if quantize and params.get("unet") is not None:
             params = dict(params)
             params["unet"] = unet_mod.quantize_params(params["unet"])
         self.quantized = quantize
         self.params = params
+        self.tokenizer = tokenizer
+        self.safety_checker = safety_checker
         if scheduler is None:
             if sampler not in SAMPLERS:
                 raise ValueError(f"sampler {sampler!r} not in {list(SAMPLERS)}")
@@ -50,21 +65,60 @@ class StableDiffusionPipeline:
         self.scheduler = scheduler
         self.latent_channels = cfg.vae.latent_channels
 
-    def __call__(self, *, prompt_embeds, negative_prompt_embeds=None,
-                 height: Optional[int] = None, width: Optional[int] = None,
-                 num_inference_steps: int = 50, guidance_scale: float = 7.5,
+    # -- prompt encoding ------------------------------------------------------
+
+    def encode_text(self, prompts, truncate_side: str = "right"):
+        """Text -> (B, T, D) last hidden states of the CLIP text encoder
+        (reference _encode_prompt, custom_sd.py:594-604), on the encoder's
+        device in its dtype."""
+        if self.tokenizer is None or "text_encoder" not in self.params:
+            raise ValueError("text encoder unavailable; pass prompt_embeds "
+                             "instead")
+        te = self.params["text_encoder"]
+        enc = self.tokenizer(prompts, max_length=self.cfg.text.max_positions,
+                             truncate_side=truncate_side)
+        ids = torch.from_numpy(enc.input_ids).long().to(
+            te["token_embedding"]["weight"].device)
+        return clip_mod.text_forward(te, self.cfg.text, ids)["last_hidden"]
+
+    def _uncond_embeds(self, batch: int):
+        """The CFG unconditional embeddings: the encoded "" when a
+        tokenizer and a text encoder are loaded, else fp32 zeros on the
+        UNet's device, as gill_tpu's."""
+        if self.tokenizer is not None and "text_encoder" in self.params:
+            e = self.encode_text([""])
+            return e.expand((batch,) + tuple(e.shape[1:]))
+        return torch.zeros((batch, self.cfg.text.max_positions,
+                            self.cfg.unet.cross_attention_dim),
+                           device=self.params["unet"]["conv_in"]["b"].device)
+
+    # -- main ------------------------------------------------------------------
+
+    def __call__(self, prompt=None, *, prompt_embeds=None,
+                 negative_prompt_embeds=None, height: Optional[int] = None,
+                 width: Optional[int] = None, num_inference_steps: int = 50,
+                 guidance_scale: float = 7.5,
                  generator: Optional[torch.Generator] = None, latents=None,
-                 output_latents: bool = False):
+                 return_prompts_only: bool = False,
+                 truncate_side: str = "right", output_latents: bool = False):
         """Returns images (B, H, W, 3) float32 in [0, 1] on the embeddings'
-        device (or the final latents when output_latents)."""
+        device, the final latents when output_latents, or the prompt
+        embeddings when return_prompts_only. `prompt` (a str or a list)
+        is encoded when `prompt_embeds` is None."""
+        if prompt_embeds is None:
+            if prompt is None:
+                raise ValueError("pass prompt or prompt_embeds")
+            if isinstance(prompt, str):
+                prompt = [prompt]
+            prompt_embeds = self.encode_text(prompt, truncate_side)
+        if return_prompts_only:
+            return prompt_embeds
         b = prompt_embeds.shape[0]
         dev = prompt_embeds.device
         if guidance_scale > 1.0:
             neg = negative_prompt_embeds
             if neg is None:
-                neg = torch.zeros(
-                    (b, self.cfg.text.max_positions,
-                     self.cfg.unet.cross_attention_dim), device=dev)
+                neg = self._uncond_embeds(b)
             ctx = torch.cat([neg.to(prompt_embeds.dtype), prompt_embeds])
         else:
             ctx = prompt_embeds
@@ -78,7 +132,10 @@ class StableDiffusionPipeline:
                                guidance_scale)
         if output_latents:
             return latents
-        return self.decode_latents(latents)
+        images = self.decode_latents(latents)
+        if self.safety_checker is not None:
+            images, _ = self.safety_checker(images)
+        return images
 
     def denoise(self, latents, ctx, num_inference_steps: int,
                 guidance_scale: float):

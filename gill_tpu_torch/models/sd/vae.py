@@ -1,14 +1,17 @@
-"""Stable Diffusion VAE decoder (AutoencoderKL) over explicit parameter
-trees, NHWC (counterpart of the decoder half of gill_tpu/models/sd/vae.py).
+"""Stable Diffusion VAE (AutoencoderKL) over explicit parameter trees,
+NHWC (counterpart of gill_tpu/models/sd/vae.py).
 
-SD v1.5: block channels (128, 256, 512, 512) reversed, 3 resnets per up
-block, one single-head attention over all 64 x 64 latent positions at the
-bottleneck (its 512-wide head runs the flash kernel on CUDA, exact
-softmax), GroupNorm(32, eps 1e-6), silu. The encoder is not ported.
+SD v1.5: block channels (128, 256, 512, 512), 2 resnets per encoder block
+and 3 per decoder block, one single-head attention over all 64 x 64
+latent positions at each bottleneck (its 512-wide head runs the flash
+kernel on CUDA, exact softmax), GroupNorm(32, eps 1e-6), silu. The
+encoder downsamples as diffusers does: pad one row and column at the
+bottom and right, then a stride-2 VALID conv.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 from gill_tpu_torch.config import VAEConfig
@@ -56,6 +59,33 @@ def init_decoder(init: nn.Init, cfg: VAEConfig):
     return params
 
 
+def init_encoder(init: nn.Init, cfg: VAEConfig):
+    chans = cfg.block_out_channels
+    ch = chans[-1]
+    params = {
+        "conv_in": init.conv2d(cfg.in_channels, chans[0], 3),
+        "down": [],
+        "mid": {"res1": _init_resnet(init, ch, ch),
+                "attn": {"norm": init.group_norm(ch),
+                         **{k: init.linear(ch, ch) for k in "qkvo"}},
+                "res2": _init_resnet(init, ch, ch)},
+        "norm_out": init.group_norm(ch),
+        "conv_out": init.conv2d(ch, 2 * cfg.latent_channels, 3),
+        "quant_conv": init.conv2d(2 * cfg.latent_channels,
+                                  2 * cfg.latent_channels, 1),
+    }
+    prev = chans[0]
+    for i, out_ch in enumerate(chans):
+        block = {"resnets": [_init_resnet(init, prev if j == 0 else out_ch,
+                                          out_ch)
+                             for j in range(cfg.layers_per_block)]}
+        if i < len(chans) - 1:
+            block["downsample"] = init.conv2d(out_ch, out_ch, 3)
+        params["down"].append(block)
+        prev = out_ch
+    return params
+
+
 def _resnet(p, x, groups):
     h = nn.group_norm(p["norm1"], x, groups, eps=1e-6)
     h = nn.conv2d(p["conv1"], F.silu(h), padding=1)
@@ -94,3 +124,39 @@ def decode(params, cfg: VAEConfig, latents, scale: bool = True):
             x = nn.conv2d(block["upsample"], upsample_nearest2x(x), padding=1)
     x = nn.group_norm(params["norm_out"], x, g, eps=1e-6)
     return nn.conv2d(params["conv_out"], F.silu(x), padding=1)
+
+
+def encode_moments(params, cfg: VAEConfig, images):
+    """images (B, H, W, 3) in [-1, 1] -> the posterior's unscaled (mean,
+    logvar), each (B, H/8, W/8, 4)."""
+    g = cfg.norm_groups
+    x = nn.conv2d(params["conv_in"], images, padding=1)
+    for block in params["down"]:
+        for res in block["resnets"]:
+            x = _resnet(res, x, g)
+        if "downsample" in block:
+            x = F.pad(x, (0, 0, 0, 1, 0, 1))
+            x = nn.conv2d(block["downsample"], x, stride=2, padding="VALID")
+    x = _resnet(params["mid"]["res1"], x, g)
+    x = _attn(params["mid"]["attn"], x, g)
+    x = _resnet(params["mid"]["res2"], x, g)
+    x = nn.group_norm(params["norm_out"], x, g, eps=1e-6)
+    x = nn.conv2d(params["conv_out"], F.silu(x), padding=1)
+    x = nn.conv2d(params["quant_conv"], x, padding=0)
+    mean, logvar = x.chunk(2, dim=-1)
+    return mean, logvar
+
+
+def encode(params, cfg: VAEConfig, images, generator=None,
+           sample: bool = False):
+    """images (B, H, W, 3) in [-1, 1] -> latents (B, H/8, W/8, 4), scaled:
+    the posterior's mean, or with `sample` a draw from it (the noise from
+    `generator`, on the images' device)."""
+    if sample and generator is None:
+        raise ValueError("sample=True needs a generator")
+    mean, logvar = encode_moments(params, cfg, images)
+    if sample:
+        noise = torch.randn(mean.shape, generator=generator,
+                            device=mean.device, dtype=mean.dtype)
+        mean = mean + torch.exp(0.5 * logvar.clamp(-30, 20)) * noise
+    return mean * SCALING_FACTOR

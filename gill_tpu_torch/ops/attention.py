@@ -20,8 +20,11 @@ gill_tpu gates its prefix-decode kernel behind GILL_PREFIX_DECODE_MIN
 (default 0, off): on a TPU v5e the Pallas call serialised its cache DMA
 against XLA's overlapped weight stream and lost end to end. That reason is
 the TPU's scheduler, not the function, so the threshold is not ported: on
-a GPU every kernel is its own launch anyway. The chunked valid-prefix
-decode behind GILL_DECODE_CHUNK_MIN (default off) is not ported.
+a GPU every kernel is its own launch anyway. gill_tpu's chunked
+valid-prefix decode behind GILL_DECODE_CHUNK_MIN (default off) is not
+ported either: an XLA loop kept for the TPU's scheduling, and on CUDA
+every single-token step with per-row lengths already takes the kernel
+above, which reads only the valid prefix.
 
 `flash_attention` launches a CUDA kernel for CUDA tensors and raises if it
 cannot; a CPU tensor takes `flash_attention_ref`, its plain version.

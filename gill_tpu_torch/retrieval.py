@@ -78,3 +78,13 @@ class RetrievalIndex:
                                            device=self.matrix.device)]
         q = torch.as_tensor(query, device=self.matrix.device).float()
         return (rows @ q).cpu().numpy()
+
+
+def save_embeddings(out_path: str, paths: Sequence[str], embeddings):
+    """Writes the reference-compatible pickled {'paths', 'embeddings'} blob
+    (scripts/extract_img_embs.py's format) that `load_embeddings` reads."""
+    if torch.is_tensor(embeddings):
+        embeddings = embeddings.detach().float().cpu().numpy()
+    with open(out_path, "wb") as f:
+        pickle.dump({"paths": list(paths),
+                     "embeddings": np.asarray(embeddings)}, f)

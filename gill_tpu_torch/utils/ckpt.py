@@ -1,7 +1,8 @@
 """Checkpoint reading for the inference path (counterpart of the npz half
 of gill_tpu/utils/ckpt.py): the native `state.npz` + `meta.json` adapter
-checkpoint and the decision model. Leaves come back as numpy arrays; the
-caller moves them to its device."""
+checkpoint, the reference's `pretrained_ckpt.pth.tar` adapters and the
+decision model. Leaves come back as numpy arrays (the reference adapters
+as fp32 CPU tensors); the caller moves them to its device."""
 
 from __future__ import annotations
 
@@ -69,3 +70,39 @@ def load_decision_model(path: str) -> dict:
     if w is None or b is None:
         raise ValueError(f"no Linear weight/bias in {path}: {list(sd)}")
     return {"w": w, "b": b}
+
+
+def load_reference_gill_checkpoint(path: str, core) -> dict:
+    """The reference's `pretrained_ckpt.pth.tar` -> adapters tree, fp32
+    CPU tensors in gill_tpu's layout (gill_tpu utils/ckpt.py
+    load_reference_gill_checkpoint; reference load_gill,
+    gill/models.py:879-893). Its state_dict holds, each key with an
+    optional DDP `module.` prefix:
+      model.input_embeddings.weight  -> its last num_tokens rows ([IMG])
+      model.visual_embeddings.*      -> visual -> LM projection
+      model.visual_fc.*              -> retrieval image head
+      model.logit_scale
+      model.ret_text_hidden_fcs.i.*  -> retrieval text head of tap i
+      model.gen_text_hidden_fcs.i.*  -> generation head (GILLMapper)
+    ModuleList index i maps to the ret_fc / ret_fc_{i} suffixes of
+    `core.tap_specs()`."""
+    import torch
+
+    from gill_tpu_torch.weights.convert import _lin, text_fc_layer_from_torch
+
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = {k.replace("module.", ""): v.detach().float()
+          for k, v in ckpt["state_dict"].items()}
+    adapters = {
+        "img_embeddings": sd["model.input_embeddings.weight"][
+            -core.cfg.num_tokens:],
+        "visual_embeddings": _lin(sd, "model.visual_embeddings"),
+        "visual_fc": _lin(sd, "model.visual_fc"),
+        "logit_scale": sd["model.logit_scale"],
+    }
+    for i, (suffix, _, _) in enumerate(core.tap_specs()):
+        adapters[f"ret_fc{suffix}"] = text_fc_layer_from_torch(
+            sd, f"model.ret_text_hidden_fcs.{i}.", core.cfg.ret_text_fc_mode)
+        adapters[f"gen_fc{suffix}"] = text_fc_layer_from_torch(
+            sd, f"model.gen_text_hidden_fcs.{i}.", core.cfg.text_fc_mode)
+    return adapters

@@ -5,7 +5,11 @@ stacks along a leading L axis) carry over leaf by leaf with the same keys
 and layouts, with one exception: a 4-D convolution kernel "w" is HWIO in
 gill_tpu and becomes an OIHW view in channels_last memory here (the layout
 `nn.core.conv2d` hands cuDNN). bf16 leaves stay bf16 unless `dtype` says
-otherwise. The CPU parity tests and the end-to-end comparison use these.
+otherwise. Leaves may also be torch tensors in gill_tpu's layout (the
+trees of weights/convert.py made from a state dict of tensors); every
+leaf comes out contiguous (a transposed Linear weight is copied). The
+CPU parity tests, the end-to-end comparison and the weight loaders use
+these.
 Quantized LM trees (`quantize_params_w8`) carry over too: int8 "w8"
 (L, K, N), fp32 "ws" (L, N), "b", and the empty-tuple "kern"/"xla"
 markers, which stay empty tuples. Quantized UNet trees
@@ -25,14 +29,17 @@ from gill_tpu_torch.nn.core import conv_weight_from_hwio
 
 
 def _leaf(x, device, dtype) -> torch.Tensor:
-    a = np.asarray(x)
-    if a.dtype.name == "bfloat16":      # ml_dtypes bf16: no torch view
-        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    if torch.is_tensor(x):
+        t = x
     else:
-        t = torch.from_numpy(np.array(a))
+        a = np.asarray(x)
+        if a.dtype.name == "bfloat16":      # ml_dtypes bf16: no torch view
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))
     if dtype is not None and torch.is_floating_point(t):
         t = t.to(dtype)
-    return t.to(device)
+    return t.to(device).contiguous()
 
 
 def tree_from_jax(tree, *, device="cpu", dtype: Optional[torch.dtype] = None):

@@ -40,7 +40,10 @@ for needed in ("gill_tpu_torch.serve.engine", "gill_tpu_torch.serve.gill_engine"
                "gill_tpu_torch.scripts.profile_prefix_decode",
                "gill_tpu_torch.scripts.profile_specdec",
                "gill_tpu_torch.serve.online", "gill_tpu_torch.serve.http",
-               "gill_tpu_torch.serve.speculative"):
+               "gill_tpu_torch.serve.speculative",
+               "gill_tpu_torch.weights.loader",
+               "gill_tpu_torch.weights.convert",
+               "gill_tpu_torch.models.safety"):
     assert needed in names, needed
 assert not bad, bad
 """
