@@ -128,7 +128,27 @@
    image out; (G6) `get_log_likelihood_scores` within 1e-4 relative of
    the plain run. K1, K2 and K3 must launch in G3-G6; the phase prints its
    `phase_s`.
-10. Checks: finite outputs of the expected shapes; request (a) gives the
+10. Training (slice 13), phase H, after phase E and outside the no_grad
+   block the other phases run in: (H1) `gill_tpu_torch.main.main(argv)`
+   in this process at full width (OPT-6.7B + CLIP ViT-L/14, bf16 frozen
+   trees, fp32 adapters, batch 32, 4 steps, a validation before and after
+   them) on a stub CC3M-layout set (128 / 32 examples, 224², 77 x 768
+   clip_embs) with a byte-level tokenizer of OPT's 50,265 entries: every
+   loss finite, the meter lines, TB's train/val scalars and four image
+   grids read back, `ckpt/` and `ckpt_best/` leaf for leaf the trained
+   adapters, the frozen trees' bits unchanged, the adapters moved, the
+   [IMG] rows at the frozen rows' mean norm (1e-3); s a step (median of
+   steps 2-4), examples/s, peak memory, the flash kernels' launches a
+   step (CLIP's attention, nonzero) and a validation; (H2) one batch-8
+   step's loss and adapter gradients against the same step with every
+   kernel swapped for its plain version (cosine >= 0.99, norms within
+   2e-2, loss within 1e-2), no kernel launched inside an LM forward
+   under grad; (H3) the same step with remat (bit for bit, else within
+   1e-3), the peak memory of both, and one remat step at batch 200;
+   (H4) one step with the LM in W8: finite, the adapters moved, the loss
+   within 5e-2 of the bf16 loss, K4 not launched under grad. It prints
+   the card's name and power limit and its `phase_s`.
+11. Checks: finite outputs of the expected shapes; request (a) gives the
    same tokens with every kernel swapped for its plain version; CLIP, the
    OPT prefill, one full-width UNet step, the VAE decode and one W8 decode
    step of phase A agree with their plain-version runs within stated
@@ -2942,6 +2962,477 @@ def phase_e(torch, dev):
     return rows, rep, failures
 
 
+# ---------------------------------------------------------------------------
+# phase H: training (slice 13)
+# ---------------------------------------------------------------------------
+
+H_TRAIN_N, H_VAL_N, H_BATCH, H_GRAD_BATCH, H_REMAT_BATCH = 128, 32, 32, 8, 200
+# H2: the kernels (CLIP's attention) against their plain versions change
+# the step's inputs by bf16 roundings only, compounded over CLIP's 24
+# layers: the leaves whose gradient is CLIP's pooled output times the
+# contrastive loss's (visual_fc, ret_fc, visual_embeddings) read cosines
+# of 0.9984-0.9996 on the card (both versions are bitwise deterministic),
+# where a kernel cutting the LM's attention gradient reads 0.009
+H_GRAD_COS, H_GRAD_NORM_RTOL, H_LOSS_RTOL = 0.99, 2e-2, 1e-2
+H_REMAT_RTOL = 1e-3      # remat against the plain step, where not bitwise
+H_W8_LOSS_RTOL = 5e-2    # tests/test_train_step.py:181
+H_RENORM_RTOL = 1e-3
+
+
+def write_opt_sized_tokenizer(path: str) -> int:
+    """vocab.json / merges.txt of a byte-level tokenizer with OPT's 50,265
+    entries (the tiny byte vocabulary and unused filler tokens), so that
+    setup_gill_tokenizer places <|image|> and [IMG0..8) where GILL's OPT
+    tokenizer has them. Returns the vocabulary size."""
+    from gill_tpu_torch.tokenizer import GPT2BPETokenizer
+
+    vocab = dict(GPT2BPETokenizer.tiny().encoder)
+    i = 0
+    while len(vocab) < 50265:
+        vocab[f"<|unused{i}|>"] = len(vocab)
+        i += 1
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(path, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    return len(vocab)
+
+
+def tree_checksum(torch, tree) -> list:
+    """Two int64 sums (of the raw bits and of their squares, wrapping) of
+    every leaf, a layer at a time: equal lists mean the trees' bits are
+    (with overwhelming likelihood) equal."""
+    from gill_tpu_torch.nn.core import tree_leaves
+
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    out = []
+    for leaf in tree_leaves(tree):
+        if not torch.is_tensor(leaf):
+            continue
+        for part in (leaf if leaf.ndim >= 3 else [leaf]):
+            v = part.contiguous().view(-1).view(
+                ints[part.element_size()]).long()
+            out.append((int(v.sum()), int((v * v).sum())))
+    return out
+
+
+class _Tee:
+    """Copies what is printed to the real stdout and keeps it."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def _flash_count(launches: dict) -> int:
+    return launches["flash_attention"] + launches["flash_mma"]
+
+
+def h1_cli(torch, dev, tmp, failures):
+    """`gill_tpu_torch.main.main(argv)` in this process at full width on a
+    stub dataset; the train step and `validate` are wrapped to time them
+    and read the launch counts around them. Returns (report, what H2-H4
+    reuse: the core, the frozen trees, the final state, the data root)."""
+    from gill_tpu_torch import main as train_main
+    from gill_tpu_torch.data.dataset import make_stub_dataset
+    from gill_tpu_torch.nn.core import tree_leaves
+    from gill_tpu_torch.train import trainer as trainer_mod
+    from gill_tpu_torch.train import validate as validate_mod
+    from gill_tpu_torch.utils import ckpt as ckpt_utils
+    from gill_tpu_torch.utils.tb import read_events
+
+    rep = {}
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "data")
+    make_stub_dataset(root, n=H_TRAIN_N, image_size=224, num_clip_tokens=77,
+                      gen_emb_dim=768, split="train")
+    make_stub_dataset(root, n=H_VAL_N, image_size=224, num_clip_tokens=77,
+                      gen_emb_dim=768, split="val")
+    tok_dir = os.path.join(tmp, "tokenizer")
+    rep["tokenizer_entries"] = write_opt_sized_tokenizer(tok_dir)
+    rep["stub_data_s"] = time.perf_counter() - t0
+
+    seen = {"steps": [], "val": []}
+    make_step, validate = trainer_mod.make_train_step, validate_mod.validate
+
+    def timed_make_step(core, tc, prefix_ids=None):
+        step = make_step(core, tc, prefix_ids)
+
+        def run(state, frozen, batch, concat=False):
+            if "frozen" not in seen:
+                seen.update(core=core, frozen=frozen,
+                            sum0=tree_checksum(torch, frozen),
+                            adapters0=[x.detach().clone()
+                                       for x in tree_leaves(state.adapters)])
+            torch.cuda.synchronize()
+            zero_launches()
+            t = time.perf_counter()
+            state, metrics = step(state, frozen, batch, concat)
+            loss = float(metrics["loss"])
+            seen["steps"].append({"s": time.perf_counter() - t,
+                                  "loss": loss, "concat": concat,
+                                  "launches": read_launches()})
+            seen["state"] = state
+            return state, metrics
+
+        return run
+
+    def timed_validate(*a, **kw):
+        torch.cuda.synchronize()
+        zero_launches()
+        t = time.perf_counter()
+        top1 = validate(*a, **kw)
+        torch.cuda.synchronize()
+        seen["val"].append({"s": time.perf_counter() - t,
+                            "launches": read_launches()})
+        return top1
+
+    argv = ["--batch-size", str(H_BATCH), "--epochs", "1",
+            "--steps-per-epoch", "4", "--val-steps-per-epoch", "1",
+            "--concat-captions-prob", "0.5", "--seed", "0",
+            "--precision", "bf16", "--lr-warmup-steps", "2",
+            "--print-freq", "2", "--workers", "8",
+            "--dataset-dir", os.path.join(root, "datasets"),
+            "--image-dir", root, "--log-base-dir", os.path.join(tmp, "runs"),
+            "--exp-name", "h1", "--tokenizer-dir", tok_dir,
+            "--device", str(dev)]
+    rep["argv"] = " ".join(argv)
+    trainer_mod.make_train_step = timed_make_step
+    validate_mod.validate = timed_validate
+    tee = _Tee(sys.stdout)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            log_dir = train_main.main(argv)
+    finally:
+        trainer_mod.make_train_step = make_step
+        validate_mod.validate = validate
+    torch.cuda.synchronize()
+    rep["main_s"] = time.perf_counter() - t0
+    rep["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    steps, vals = seen["steps"], seen["val"]
+    core, state = seen["core"], seen["state"]
+    rep["img_start"] = core.img_start
+    rep["vocab_len"] = core.vocab_len
+    rep["embed_rows"] = int(seen["frozen"]["lm"]["embed_tokens"][
+        "weight"].shape[0])
+    rep["step_s"] = [s["s"] for s in steps]
+    rep["losses"] = [s["loss"] for s in steps]
+    rep["concat"] = [s["concat"] for s in steps]
+    med = sorted(rep["step_s"][1:4])[1]
+    rep["s_a_step_median_2_4"] = med
+    rep["examples_per_s"] = H_BATCH / med
+    rep["flash_launches_a_step"] = [_flash_count(s["launches"])
+                                    for s in steps]
+    rep["launches_step_2"] = steps[1]["launches"]
+    rep["val_s"] = [v["s"] for v in vals]
+    rep["flash_launches_a_validation"] = [_flash_count(v["launches"])
+                                          for v in vals]
+    rep["launches_validation"] = vals[-1]["launches"]
+
+    text = tee.text()
+    if len(steps) != 4 or not all(math.isfinite(x) for x in rep["losses"]):
+        failures.append(f"H1: steps {len(steps)}, losses {rep['losses']}")
+    if "Epoch: [0]" not in text or " * val/loss=" not in text:
+        failures.append("H1: the meter lines were not printed")
+    if len(vals) != 2:
+        failures.append(f"H1: {len(vals)} validations, want 2")
+    if min(rep["flash_launches_a_step"]) <= 0:
+        failures.append("H1: CLIP's flash kernel did not launch in a step")
+    if min(rep["flash_launches_a_validation"]) <= 0:
+        failures.append("H1: no flash kernel launched in validation")
+    (ev,) = [os.path.join(log_dir, f) for f in os.listdir(log_dir)
+             if f.startswith("events.out.tfevents.")]
+    events = read_events(ev, verify_crc=True)
+    scalars = {t for e in events for t in e["scalars"]}
+    images = {t for e in events for t in e["images"]}
+    rep["tb_tags"] = len(scalars | images)
+    want_s = {"train/loss", "train/cap_ce", "train/cont_loss",
+              "train/gen_l2", "train/grad_norm", "train/lr", "val/loss",
+              "val/top1", "val/bleu4", "metrics/examples_per_sec"}
+    want_i = {"train/images_gen_cap", "train/t2i_ret", "train/i2t_ret",
+              "val/images_captioning"}
+    if not (want_s <= scalars and want_i <= images):
+        failures.append(f"H1: TB lacks {sorted(want_s - scalars)} "
+                        f"{sorted(want_i - images)}")
+    mism = 0
+    for sub in ("ckpt", "ckpt_best"):
+        tree, meta = ckpt_utils.load_checkpoint(os.path.join(log_dir, sub))
+        got = ckpt_utils._flatten(tree["adapters"])
+        want = ckpt_utils._flatten(state.adapters)
+        mism += sum(not (k in got and (got[k] == want[k]).all())
+                    for k in want) + len(set(got) - set(want))
+        if meta["step"] != 4:
+            failures.append(f"H1: {sub} step {meta['step']}")
+    rep["ckpt_leaf_mismatches"] = mism
+    if mism:
+        failures.append(f"H1: {mism} checkpoint leaves differ")
+    rep["frozen_bits_unchanged"] = \
+        tree_checksum(torch, seen["frozen"]) == seen["sum0"]
+    if not rep["frozen_bits_unchanged"]:
+        failures.append("H1: a frozen tree changed")
+    moved = [float((a.detach() - b).abs().max()) for a, b in
+             zip(tree_leaves(state.adapters), seen["adapters0"])]
+    rep["adapter_leaves_moved"] = sum(m > 0 for m in moved)
+    if rep["adapter_leaves_moved"] < len(moved) - 1:
+        failures.append(f"H1: adapters moved {moved}")
+    with torch.no_grad():
+        table = seen["frozen"]["lm"]["embed_tokens"]["weight"]
+        target = float(torch.linalg.vector_norm(
+            table[:core.vocab_len - core.cfg.num_tokens].float(),
+            dim=1).mean())
+        norms = torch.linalg.vector_norm(
+            state.adapters["img_embeddings"].float(), dim=1)
+    rep["img_norm_rel_err"] = float((norms / target - 1).abs().max())
+    if rep["img_norm_rel_err"] > H_RENORM_RTOL:
+        failures.append(f"H1: [IMG] norms {norms.tolist()} vs {target}")
+    return rep, (core, seen["frozen"], state, root)
+
+
+def _h_batch(torch, dev, root, core, n: int):
+    """The first n training examples (cycled) as one device batch."""
+    import numpy as np
+
+    from gill_tpu_torch.data.dataset import TsvDataset
+    from gill_tpu_torch.tokenizer import GPT2BPETokenizer, setup_gill_tokenizer
+    from gill_tpu_torch.train.trainer import put_batch
+
+    tok = GPT2BPETokenizer.from_pretrained_dir(
+        os.path.join(os.path.dirname(root), "tokenizer"))
+    ids = setup_gill_tokenizer(tok, core.cfg.num_tokens)
+    ds = TsvDataset(os.path.join(root, "datasets", "cc3m_train.tsv"),
+                    os.path.join(root, "cc3m/training"), tok, ids,
+                    max_len=core.cfg.max_len, image_size=224)
+    items = [ds.get(i % len(ds)) for i in range(n)]
+    batch = {k: np.stack([it[k] for it in items]) for k in items[0]
+             if k != "path"}
+    return put_batch(batch, dev, torch.bfloat16)
+
+
+@contextlib.contextmanager
+def decoder_launches():
+    """While the block runs, records each LM forward's launch counts (read
+    just before and just after it) into the yielded list."""
+    from gill_tpu_torch.models import opt as opt_mod
+
+    forward, rec = opt_mod.forward, []
+
+    def counted(*a, **kw):
+        before = read_launches()
+        out = forward(*a, **kw)
+        after = read_launches()
+        rec.append({k: after[k] - before[k] for k in after
+                    if after[k] != before[k]})
+        return out
+
+    opt_mod.forward = counted
+    try:
+        yield rec
+    finally:
+        opt_mod.forward = forward
+
+
+def h_grads(torch, core, frozen, adapters0, batch, tc):
+    """Loss and adapter gradients of one step's three forwards from the
+    adapters `adapters0` (copied)."""
+    from gill_tpu_torch.nn.core import tree_leaves, tree_map
+    from gill_tpu_torch.train.trainer import compute_losses
+
+    adapters = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                        adapters0)
+    params = {"lm": frozen["lm"], "vision": frozen["vision"],
+              "adapters": adapters}
+    with torch.enable_grad():
+        loss, _ = compute_losses(core, params, batch, tc, False)
+        leaves = tree_leaves(adapters)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g.detach()
+             for p, g in zip(leaves, grads)]
+    return float(loss.detach()), grads
+
+
+def _leaf_paths(tree, prefix="") -> list:
+    """"a/b/c" for each leaf, in tree_leaves order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in _leaf_paths(v, f"{prefix}/{k}")]
+    return [prefix]
+
+
+def _grad_agreement(torch, got, want, names) -> dict:
+    """Per adapter leaf: the cosine of the two gradients and the relative
+    difference of their norms; the worst of each, and its leaf."""
+    cos, rel = [], []
+    for name, g, w in zip(names, got, want):
+        g, w = g.double().flatten(), w.double().flatten()
+        ng, nw = float(g.norm()), float(w.norm())
+        if nw == 0.0 and ng == 0.0:
+            continue
+        cos.append((float(g @ w) / max(ng * nw, 1e-300), name))
+        rel.append((abs(ng - nw) / max(nw, 1e-300), name))
+    return {"min_cos": min(cos)[0], "min_cos_leaf": min(cos)[1],
+            "max_norm_rel": max(rel)[0], "max_norm_rel_leaf": max(rel)[1],
+            "leaves": len(cos)}
+
+
+def _lm_kernel_launches(records) -> int:
+    return sum(d.get(k, 0) for d in records
+               for k in ("flash_attention", "flash_mma", "w8_matmul",
+                         "prefix_decode_attention", "flash_mma_q8"))
+
+
+def h2_to_h4(torch, dev, core, frozen, state, root, failures):
+    """H2: one step's loss and adapter gradients at batch 8 as the port
+    runs it and with every kernel swapped for its plain version; no kernel
+    may launch inside the LM forwards under grad. H3: the same with remat
+    (peak memory of both), then one remat step at batch 200. H4: one step
+    with the LM quantized to W8."""
+    import dataclasses
+
+    from gill_tpu_torch.config import TrainConfig
+    from gill_tpu_torch.models import opt as opt_mod
+    from gill_tpu_torch.nn.core import tree_leaves
+    from gill_tpu_torch.train import trainer as trainer_mod
+
+    rep = {}
+    tc = TrainConfig(batch_size=H_GRAD_BATCH, precision="bf16")
+    batch = _h_batch(torch, dev, root, core, H_GRAD_BATCH)
+    adapters = state.adapters
+
+    def run(tc):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t = time.perf_counter()
+        with decoder_launches() as lm_launches:
+            loss, grads = h_grads(torch, core, frozen, adapters, batch, tc)
+        torch.cuda.synchronize()
+        return {"loss": loss, "grads": grads,
+                "s": time.perf_counter() - t,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": read_launches(),
+                "lm_kernel_launches": _lm_kernel_launches(lm_launches)}
+
+    # H2
+    kern = run(tc)
+    with plain_kernels():
+        plain = run(tc)
+    names = _leaf_paths(adapters)
+    agree = _grad_agreement(torch, kern["grads"], plain["grads"], names)
+    rep["h2"] = {"loss": kern["loss"], "loss_plain": plain["loss"],
+                 "loss_rel": abs(kern["loss"] - plain["loss"])
+                 / abs(plain["loss"]), **agree,
+                 "s": kern["s"], "s_plain": plain["s"],
+                 "flash_launches": _flash_count(kern["launches"]),
+                 "lm_kernel_launches_under_grad":
+                     kern["lm_kernel_launches"]}
+    if not (rep["h2"]["loss_rel"] <= H_LOSS_RTOL
+            and agree["min_cos"] >= H_GRAD_COS
+            and agree["max_norm_rel"] <= H_GRAD_NORM_RTOL):
+        failures.append(f"H2: kernel step vs plain {rep['h2']}")
+    if kern["lm_kernel_launches"]:
+        failures.append("H2: a kernel launched in an LM forward under grad")
+    if rep["h2"]["flash_launches"] <= 0:
+        failures.append("H2: CLIP's flash kernel did not launch")
+
+    # H3 (its first call pays a one-time warm-up of several seconds on
+    # the card, so the second is timed)
+    run(dataclasses.replace(tc, remat=True))
+    remat = run(dataclasses.replace(tc, remat=True))
+    bitwise = remat["loss"] == kern["loss"] and all(
+        torch.equal(a, b) for a, b in zip(remat["grads"], kern["grads"]))
+    agree = _grad_agreement(torch, remat["grads"], kern["grads"], names)
+    rep["h3"] = {"bitwise_equal": bitwise, **agree,
+                 "peak_gb": remat["peak_gb"], "peak_gb_no_remat":
+                     kern["peak_gb"], "s": remat["s"], "s_no_remat": kern["s"],
+                 "lm_kernel_launches_under_grad":
+                     remat["lm_kernel_launches"]}
+    if not bitwise and (abs(remat["loss"] / kern["loss"] - 1) > H_REMAT_RTOL
+                        or agree["max_norm_rel"] > H_REMAT_RTOL
+                        or agree["min_cos"] < 1 - H_REMAT_RTOL):
+        failures.append(f"H3: remat vs plain step {rep['h3']}")
+    del remat, kern, plain
+    torch.cuda.empty_cache()
+    big = _h_batch(torch, dev, root, core, H_REMAT_BATCH)
+    tc200 = dataclasses.replace(tc, batch_size=H_REMAT_BATCH, remat=True)
+    st = trainer_mod.init_state(tc200, adapters)
+    step = trainer_mod.make_train_step(core, tc200)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    st, m = step(st, frozen, big)
+    loss200 = float(m["loss"])
+    rep["h3"].update(batch200_s=time.perf_counter() - t,
+                     batch200_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                     batch200_loss=loss200)
+    if not math.isfinite(loss200):
+        failures.append(f"H3: batch-200 remat loss {loss200}")
+    del st, m, big, step
+    torch.cuda.empty_cache()
+
+    # H4
+    t = time.perf_counter()
+    with torch.no_grad():
+        lm8 = opt_mod.quantize_params_w8(frozen["lm"])
+    rep["h4"] = {"quantize_s": time.perf_counter() - t}
+    frozen8 = {"lm": lm8, "vision": frozen["vision"]}
+    tc8 = dataclasses.replace(tc, lr_warmup_steps=0)
+    st = trainer_mod.init_state(tc8, adapters)
+    step = trainer_mod.make_train_step(core, tc8)
+    bf16_loss = float(trainer_mod.make_eval_step(core, tc8)(
+        adapters, frozen, batch)["loss"])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with decoder_launches() as lm_launches:
+        st, m = step(st, frozen8, batch)
+        loss8 = float(m["loss"])
+    rep["h4"].update(
+        s=time.perf_counter() - t, loss=loss8, loss_bf16=bf16_loss,
+        loss_rel=abs(loss8 / bf16_loss - 1),
+        k4_launches_under_grad=sum(d.get("w8_matmul", 0)
+                                   for d in lm_launches),
+        lm_kernel_launches_under_grad=_lm_kernel_launches(lm_launches),
+        adapter_leaves_moved=sum(
+            not torch.equal(a, b) for a, b in
+            zip(tree_leaves(st.adapters), tree_leaves(adapters))))
+    if not (math.isfinite(loss8)
+            and rep["h4"]["loss_rel"] <= H_W8_LOSS_RTOL):
+        failures.append(f"H4: W8 loss {loss8} vs bf16 {bf16_loss}")
+    if rep["h4"]["lm_kernel_launches_under_grad"]:
+        failures.append("H4: a kernel launched in an LM forward under grad")
+    if rep["h4"]["adapter_leaves_moved"] < len(tree_leaves(adapters)) - 1:
+        failures.append(f"H4: adapters moved {rep['h4']}")
+    return rep
+
+
+def phase_h(torch, dev):
+    """Training (slice 13), outside the script's no_grad block; returns
+    (report, failures)."""
+    failures = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rep, (core, frozen, state, root) = h1_cli(torch, dev, tmp, failures)
+        rep = {"h1": rep}
+        torch.cuda.empty_cache()
+        rep.update(h2_to_h4(torch, dev, core, frozen, state, root, failures))
+        del core, frozen, state
+    torch.cuda.empty_cache()
+    rep["device"] = smi_line()
+    rep["phase_s"] = time.perf_counter() - t0
+    return rep, failures
+
+
 # one run of a tree's own main path, in a fresh process (argv[1]: its
 # root, argv[2]: this script, whose tree's scripts/_timing.py profiles both
 # trees), then ten timed full-width UNet calls and one profiled one
@@ -3203,6 +3694,10 @@ def main() -> int:
         rows += e_rows
         failures += e_failures
         log("probe phase E:", json.dumps(e_report))
+    torch.cuda.empty_cache()
+    h_report, h_failures = phase_h(torch, dev)
+    failures += h_failures
+    log("training phase H:", json.dumps(h_report))
     # launches on each kernel's own paths: slice 1's main path for flash
     # and GEGLU, serving phases A and B for the W8 and decode kernels, the
     # fused-LN generation (D1) for K7-K9, the q8 UNet call (D2) for K10 and

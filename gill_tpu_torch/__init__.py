@@ -12,8 +12,10 @@ same path:
   ops/attention.py      <- gill_tpu/ops/attention.py   (CUDA flash kernel)
   ops/geglu.py          <- gill_tpu/ops/geglu.py       (CUDA GEGLU kernel)
   ops/sampling.py, models/{clip,opt,mapper,decision,gill}.py,
-  models/sd/{scheduler,unet,vae,pipeline}.py, retrieval.py, api.py
-                        <- their gill_tpu namesakes
+  models/sd/{scheduler,unet,vae,pipeline}.py, retrieval.py, api.py,
+  train/{losses,trainer,validate,bleu}.py, data/dataset.py,
+  utils/{tb,meters}.py  <- their gill_tpu namesakes
+  main.py               <- the repository's main.py (the training CLI)
   weights/from_jax.py   gill_tpu param tree -> this package's param tree
 
 Hand-written CUDA kernels live in csrc/ and are compiled with nvcc at first

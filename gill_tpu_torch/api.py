@@ -28,8 +28,9 @@ its slot pool and stream their tokens.
 diffusers directories (weights/loader.py's search rules, with
 GILL_TPU_WEIGHTS_DIR), the SD tokenizer and safety checker from the
 diffusers layout, and the reference's `pretrained_ckpt.pth.tar` adapters;
-`get_log_likelihood_scores` scores an interleaved sequence. Not ported
-yet: `GILL.__call__` (its non-generate branch is the training forward).
+`get_log_likelihood_scores` scores an interleaved sequence. `GILL.__call__`
+dispatches the training forward (`GILLCore.forward`) or, with
+generate=True, the decode.
 """
 
 from __future__ import annotations
@@ -97,6 +98,33 @@ class GILL:
         self.decision_params = decision_params
         self.num_gen_images = num_gen_images
         self.idx2dec = decision_mod.IDX2DEC
+
+    def __call__(self, images, tgt_tokens=None, caption_len=None,
+                 generate: bool = False, num_words: int = 32,
+                 temperature: float = 1.0, top_p: float = 1.0,
+                 ret_scale_factor: float = 1.0, gen_scale_factor: float = 1.0,
+                 min_word_tokens: int = 0, mode: str = "captioning",
+                 concat_captions: bool = False, input_prefix=None,
+                 generator: Optional[torch.Generator] = None):
+        """Train-forward vs generate dispatch (reference GILL.__call__,
+        gill/models.py:563-580). `images` is pixel values (B, H, W, 3) for
+        the forward, or prompt embeddings (B, T, E) when generate=True."""
+        if generate:
+            return self.core.generate(
+                self.params, images, num_words=num_words,
+                temperature=temperature, top_p=top_p,
+                min_word_tokens=min_word_tokens,
+                ret_scale_factor=ret_scale_factor,
+                gen_scale_factor=gen_scale_factor, generator=generator,
+                kv_int8=self.kv_int8)
+        prefix_ids = None
+        if input_prefix:
+            prefix_ids = torch.tensor(
+                self.tokenizer.encode(input_prefix, add_special_tokens=False),
+                dtype=torch.long, device=self.device)
+        return self.core.forward(self.params, images, tgt_tokens, caption_len,
+                                 mode=mode, concat_captions=concat_captions,
+                                 prefix_ids=prefix_ids)
 
     # -- prompt assembly -------------------------------------------------------
 

@@ -196,6 +196,72 @@ class GILLConfig:
         return CLIPVisionConfig.from_name(self.visual_encoder)
 
 
+@dataclasses.dataclass
+class TrainConfig:
+    """Trainer flags (reference: main.py argparse); the fields and defaults
+    of gill_tpu's `TrainConfig`."""
+    dataset: str = "cc3m"
+    val_dataset: str = "cc3m"
+    dataset_dir: str = "datasets"
+    image_dir: str = "data/"
+    log_base_dir: str = "./runs"
+    exp_name: str = "gill_tpu"
+
+    epochs: int = 10
+    steps_per_epoch: int = 2000
+    start_epoch: int = 0
+    val_steps_per_epoch: int = -1
+    batch_size: int = 200
+    val_batch_size: Optional[int] = None
+    lr: float = 1e-3
+    lr_warmup_steps: int = 2000
+    lr_schedule_step_size: int = 5       # epochs between LR decays
+    lr_schedule_gamma: float = 0.1
+    grad_accumulation_steps: int = 1
+    grad_clip: float = 1.0
+    precision: str = "bf16"              # fp32 | bf16
+    cap_loss_scale: float = 1.0
+    ret_loss_scale: float = 1.0
+    gen_loss_scale: float = 1.0
+    concat_captions_prob: float = 0.5
+    input_prompt: str = "A picture of"
+    max_len: int = 32
+    beta1: float = 0.9
+    beta2: float = 0.95
+    weight_decay: float = 0.01
+    print_freq: int = 10
+    resume: str = ""
+    evaluate: bool = False
+    seed: Optional[int] = None
+    workers: int = 4
+
+    # Recompute each frozen-LM layer in the backward of the train forwards
+    # instead of keeping its activations (models/opt.py forward(remat=)).
+    remat: bool = False
+
+    # Mesh layout (data, model); the port trains on one device, and the
+    # CLI refuses sizes above 1.
+    dp_size: int = -1
+    tp_size: int = 1
+
+    def to_json(self, path: Optional[str] = None) -> str:
+        s = json.dumps(dataclasses.asdict(self), indent=4)
+        if path is not None:
+            with open(path, "w") as f:
+                f.write(s)
+        return s
+
+    @classmethod
+    def from_json(cls, path_or_str: str) -> "TrainConfig":
+        if path_or_str.lstrip().startswith("{"):
+            d = json.loads(path_or_str)
+        else:
+            with open(path_or_str) as f:
+                d = json.load(f)
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
 # ---------------------------------------------------------------------------
 # adapter and Stable Diffusion configs
 # ---------------------------------------------------------------------------

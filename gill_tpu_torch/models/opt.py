@@ -28,10 +28,11 @@ W8 weight's layer view is a view too, so nothing is copied per layer.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from gill_tpu_torch.config import OPTConfig
 from gill_tpu_torch.nn import core as nn
-from gill_tpu_torch.ops.attention import dot_product_attention
+from gill_tpu_torch.ops.attention import dot_product_attention, needs_grad
 from gill_tpu_torch.ops.w8_matmul import row_windows
 
 # On the card cuBLAS picks a plain (bf16 / fp32) weight's algorithm by the
@@ -236,12 +237,25 @@ def _write_at(cache_kv, rows, pos):
         dst[bidx, pc] = torch.where(keep, new[:, 0], dst[bidx, pc])
 
 
+def use_row_windows(p, x, *, on_cuda: bool) -> bool:
+    """Whether `_linear` takes the product in ROW_WINDOW-row windows: a
+    plain weight, on the card, more than ROW_WINDOW rows, and no gradient
+    to carry. The windows keep a serving prompt's bits independent of its
+    wave; they write one output through `out=`, which autograd refuses,
+    and under grad they read each weight once a window (a batch-32 train
+    step took 1.8x as long on the card), so a training forward takes one
+    product."""
+    return ("w" in p and on_cuda and x.numel() // x.shape[-1] > ROW_WINDOW
+            and not needs_grad(x, p["w"]))
+
+
 def _linear(p, x):
     """`nn.linear`, with a plain weight's product on the card of more than
-    ROW_WINDOW rows taken in ROW_WINDOW-row windows (see ROW_WINDOW)."""
-    m = x.numel() // x.shape[-1]
-    if "w" not in p or not x.is_cuda or m <= ROW_WINDOW:
+    ROW_WINDOW rows taken in ROW_WINDOW-row windows where
+    `use_row_windows` says so (see ROW_WINDOW)."""
+    if not use_row_windows(p, x, on_cuda=x.is_cuda):
         return nn.linear(p, x)
+    m = x.numel() // x.shape[-1]
     w = p["w"].to(x.dtype)
     x2 = x.reshape(m, x.shape[-1])
     y = torch.empty((m, w.shape[1]), device=x.device, dtype=x.dtype)
@@ -310,8 +324,13 @@ def _layer(cfg: OPTConfig, lp, h, *, cache_kv=None, cache_pos=None,
 
 def forward(params, cfg: OPTConfig, inputs_embeds, *,
             collect_hidden: bool = False, cache=None, cache_pos=None,
-            lm_head=None, skip_logits: bool = False):
+            lm_head=None, skip_logits: bool = False, remat: bool = False):
     """Decoder forward from input embeddings (B, T, word_embed_proj_dim).
+
+    remat: with no cache and grad enabled, each layer runs under
+    `torch.utils.checkpoint` (non-reentrant): its activations are
+    recomputed in the backward instead of kept (gill_tpu's per-layer
+    `jax.checkpoint`, the training memory saver).
 
     Returns "last_hidden" (B, T, E); "logits" (B, T, V) in fp32 unless
     skip_logits; "hidden_states" (L+1, B, T, D) when collect_hidden (index
@@ -339,10 +358,15 @@ def forward(params, cfg: OPTConfig, inputs_embeds, *,
     ckeys = None if cache is None else cache_keys(cache)
     per_row = (_per_row_decode(cache_pos, cache["k"].shape[2])
                if cache is not None and torch.is_tensor(cache_pos) else None)
+    remat = remat and cache is None and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
         kv = None if cache is None else tuple(cache[c][i] for c in ckeys)
-        h = _layer(cfg, nn.layer_view(layers, i), h, cache_kv=kv,
-                   cache_pos=cache_pos, per_row=per_row)
+        lp = nn.layer_view(layers, i)
+        if remat:
+            h = checkpoint(_layer, cfg, lp, h, use_reentrant=False)
+        else:
+            h = _layer(cfg, lp, h, cache_kv=kv, cache_pos=cache_pos,
+                       per_row=per_row)
         if collect_hidden:
             hs.append(h)
 

@@ -126,6 +126,19 @@ def conv_weight_from_hwio(w_hwio: torch.Tensor) -> torch.Tensor:
 # layers
 # ---------------------------------------------------------------------------
 
+def w8_kernel_eligible(p, x, *, on_cuda: bool) -> bool:
+    """Whether `linear` sends the W8 product x @ (w8 * ws) to the kernel:
+    on a CUDA device, no "xla" marker, a shape the kernel takes, and an x
+    that needs no gradient (a training forward through a W8 frozen LM
+    takes the differentiable dequant form)."""
+    from gill_tpu_torch.ops.attention import needs_grad
+
+    kdim, n = p["w8"].shape
+    return (on_cuda and "xla" not in p and not needs_grad(x)
+            and w8_ops.supported(min(x.numel() // kdim, w8_ops.MAX_M),
+                                 kdim, n))
+
+
 def linear(p, x):
     """x @ w (+ b), weight cast to x's dtype (gill_tpu nn.core.linear).
 
@@ -136,16 +149,15 @@ def linear(p, x):
     (`ops.w8_matmul.w8_matmul_rows`), so a prefill row's bits do not
     depend on its wave's size; the rest — other shapes and the CPU — take
     the dequant form x @ (w8 * ws) (+ b) in x's dtype, as gill_tpu
-    computes it outside any Pallas kernel. W8A8 leaves {"wq", "ws", "b"?}
-    take `quant.int8_linear` (dynamic per-tensor activation scale, int32
-    sums)."""
+    computes it outside any Pallas kernel, and so does an x that needs a
+    gradient (`w8_kernel_eligible`: the kernel has no backward). W8A8
+    leaves {"wq", "ws", "b"?} take `quant.int8_linear` (dynamic per-tensor
+    activation scale, int32 sums)."""
     if "wq" in p:
         return quant.int8_linear(x, p["wq"], p["ws"], p.get("b"))
     if "w8" in p:
         w8 = p["w8"]
-        kdim, n = w8.shape
-        if (x.is_cuda and "xla" not in p and w8_ops.supported(
-                min(x.numel() // kdim, w8_ops.MAX_M), kdim, n)):
+        if w8_kernel_eligible(p, x, on_cuda=x.is_cuda):
             return w8_ops.w8_matmul_rows(x, w8, p["ws"], p.get("b"))
         w = w8.to(x.dtype) * p["ws"].to(x.dtype)[None, :]
         y = torch.matmul(x, w)

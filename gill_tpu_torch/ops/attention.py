@@ -16,6 +16,11 @@ lies on a CUDA device" in place of `_on_tpu()`:
     `impl="flash"` -> `flash_attention` (csrc/flash_mma.cu for bf16,
     csrc/flash_attn.cu for fp32, at the launch plan `flash_plan` gives);
   * everything else -> `_xla_attention` (plain einsum + softmax).
+No kernel here has a backward (gill_tpu's: "pallas_call has no VJP"), so
+every gate refuses a call whose q, k or v needs a gradient (`needs_grad`):
+the training forward's attention takes `_xla_attention`, as gill_tpu's
+>= 256-key floor keeps it there, and `flash_attention` raises on such
+inputs on any device. `flash_attention_ref` stays differentiable.
 gill_tpu gates its prefix-decode kernel behind GILL_PREFIX_DECODE_MIN
 (default 0, off): on a TPU v5e the Pallas call serialised its cache DMA
 against XLA's overlapped weight stream and lost end to end. That reason is
@@ -42,6 +47,13 @@ from typing import NamedTuple, Optional
 import torch
 
 NEG_INF = -1e30    # gill_tpu's _NEG_INF
+
+
+def needs_grad(*xs) -> bool:
+    """True when autograd records a graph through one of the tensors xs
+    (None entries are skipped): a kernel without a backward would cut it."""
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in xs)
 
 
 # ---------------------------------------------------------------------------
@@ -310,8 +322,14 @@ def flash_attention(q, k, v, *, causal: bool = False,
     block_q / block_k pick, counted on `flash_attention.mma_launches`;
     above, K1), fp32 csrc/flash_attn.cu (K1); K1 counts on
     `flash_attention.launches`. A block_q / block_k outside K2 raises, on
-    the CPU too. CPU tensors take `flash_attention_ref`."""
+    the CPU too. CPU tensors take `flash_attention_ref`. An input that
+    needs a gradient raises on every device: the kernels have no
+    backward."""
     del fast
+    if needs_grad(q, k, v):
+        raise RuntimeError("flash_attention has no backward; an input needs "
+                           "a gradient (use flash_attention_ref or the "
+                           "dispatcher, which takes the plain path)")
     b, t, h, d = q.shape
     s = k.shape[1]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
@@ -531,27 +549,32 @@ flash_attention_q8.launches = 0
 
 def flash_eligible(*, on_cuda: bool, t: int, s: int, has_bias: bool,
                    has_kv_offset: bool, impl: str,
-                   causal: bool = False) -> bool:
-    """The dispatcher's flash gate: forced by impl='flash'; under 'auto',
-    multi-token queries over >= 256 keys with no additive bias or dynamic
-    kv_offset, on a CUDA device (gill_tpu: on a TPU) — and there causal
-    ones over any number of keys: a prompt's rows then take one kernel
-    whatever bucket its prefill wave pads it to (on the plain path below
-    256 keys and the kernel above, its bits followed the wave)."""
-    return impl == "flash" or (
+                   causal: bool = False, grad: bool = False) -> bool:
+    """The dispatcher's flash gate: never when an input needs a gradient
+    (`grad`: the kernel has no backward, so a training forward's attention
+    takes the plain path whatever the rules below say); forced by
+    impl='flash'; under 'auto', multi-token queries over >= 256 keys with
+    no additive bias or dynamic kv_offset, on a CUDA device (gill_tpu: on a
+    TPU) — and there causal ones over any number of keys: a prompt's rows
+    then take one kernel whatever bucket its prefill wave pads it to (on
+    the plain path below 256 keys and the kernel above, its bits followed
+    the wave)."""
+    return not grad and (impl == "flash" or (
         impl == "auto" and on_cuda and not has_bias and not has_kv_offset
-        and t > 1 and (s >= 256 or causal))
+        and t > 1 and (s >= 256 or causal)))
 
 
 def prefix_decode_eligible(q, k, kv_offset, extra_kv, kv_scales, *,
                            on_cuda: bool) -> bool:
     """The dispatcher's gate for the valid-prefix decode kernel: per-row
     offsets and the own token's k/v given, the kernel's scope
-    (`decode_attn.supported`), on a CUDA device. gill_tpu's measured-on-TPU
-    minimum bucket (PREFIX_DECODE_MIN) is not ported (module docstring)."""
+    (`decode_attn.supported`), on a CUDA device, and no input needing a
+    gradient. gill_tpu's measured-on-TPU minimum bucket
+    (PREFIX_DECODE_MIN) is not ported (module docstring)."""
     from gill_tpu_torch.ops import decode_attn
 
     return (on_cuda and kv_offset is not None and extra_kv is not None
+            and not needs_grad(q, k, *extra_kv)
             and decode_attn.supported(q, k, kv_offset, kv_scales))
 
 
@@ -564,7 +587,8 @@ def dot_product_attention(q, k, v, *, causal: bool = False, bias=None,
     impl: 'auto' | 'xla' | 'flash'. Single-token causal decode takes the
     valid-prefix kernel where `prefix_decode_eligible`, else the mul +
     reduce path; `flash_eligible` calls take the flash kernel; everything
-    else the plain einsum path. `kv_lengths`: the (B,) int32 valid cache
+    else the plain einsum path, which also takes every call whose q, k or
+    v needs a gradient. `kv_lengths`: the (B,) int32 valid cache
     rows kv_offset + 1 where the caller has made them already (opt.forward
     makes them once a forward, not once a layer)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
@@ -591,7 +615,7 @@ def dot_product_attention(q, k, v, *, causal: bool = False, bias=None,
     if flash_eligible(on_cuda=q.is_cuda, t=q.shape[1], s=k.shape[1],
                       has_bias=bias is not None,
                       has_kv_offset=kv_offset is not None, impl=impl,
-                      causal=causal):
+                      causal=causal, grad=needs_grad(q, k, v)):
         return flash_attention(q, k, v, causal=causal, scale=scale, fast=fast)
     return _xla_attention(q, k, v, causal=causal, bias=bias, scale=scale,
                           kv_offset=kv_offset)

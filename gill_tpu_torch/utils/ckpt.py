@@ -1,18 +1,51 @@
-"""Checkpoint reading for the inference path (counterpart of the npz half
-of gill_tpu/utils/ckpt.py): the native `state.npz` + `meta.json` adapter
-checkpoint, the reference's `pretrained_ckpt.pth.tar` adapters and the
-decision model. Leaves come back as numpy arrays (the reference adapters
-as fp32 CPU tensors); the caller moves them to its device."""
+"""Checkpoint IO (counterpart of the npz half of gill_tpu/utils/ckpt.py):
+the native `state.npz` + `meta.json` checkpoint (written by the trainer,
+read by the trainer's --resume and the inference path), the reference's
+`pretrained_ckpt.pth.tar` adapters and the decision model. Leaves are
+saved and come back as numpy arrays (the reference adapters as fp32 CPU
+tensors); the caller moves them to its device. The flattened keys are
+gill_tpu's, so either package reads the other's adapters; the optimizer
+state each package stores is its own. gill_tpu's orbax backend (sharded,
+multi-host) is JAX-only and not ported."""
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Tuple
+import shutil
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
 SEP = "//"
+
+
+def _leaf_to_numpy(x) -> np.ndarray:
+    if hasattr(x, "detach"):                  # a torch tensor
+        import torch
+
+        t = x.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+    return np.asarray(x)
+
+
+def _flatten(tree, prefix=""):
+    """{"a": {"b": x}} -> {"a//b": x}; list / tuple items under "#i", an
+    empty one as "#empty" (gill_tpu's keys)."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{SEP}{k}" if prefix else str(k)))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{SEP}#{i}" if prefix else f"#{i}"))
+        if len(tree) == 0:
+            out[prefix + SEP + "#empty"] = np.zeros((0,))
+    else:
+        out[prefix] = _leaf_to_numpy(tree)
+    return out
 
 
 def _unflatten(flat: Dict[str, np.ndarray]):
@@ -38,9 +71,27 @@ def _unflatten(flat: Dict[str, np.ndarray]):
     return finalize(root)
 
 
+def save_checkpoint(state_tree, ckpt_dir: str, *, step: int,
+                    is_best: bool = False, meta: Optional[dict] = None):
+    """Writes `<ckpt_dir>/ckpt/state.npz` and `meta.json` ({"step": step,
+    **meta}), and copies them to `<ckpt_dir>/ckpt_best/` when is_best
+    (reference utils.py:122-125; gill_tpu `save_checkpoint`). Tensor
+    leaves are saved as numpy (bf16 as fp32)."""
+    path = os.path.join(ckpt_dir, "ckpt")
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, "state.npz"), **_flatten(state_tree))
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump({"step": step, **(meta or {})}, f)
+    if is_best:
+        best = os.path.join(ckpt_dir, "ckpt_best")
+        if os.path.exists(best):
+            shutil.rmtree(best)
+        shutil.copytree(path, best)
+
+
 def load_checkpoint(ckpt_dir: str) -> Tuple[Any, dict]:
     """Reads `<ckpt_dir>/state.npz` (or `<ckpt_dir>/ckpt/state.npz`) and its
-    meta.json, as written by gill_tpu.utils.ckpt.save_checkpoint."""
+    meta.json, as `save_checkpoint` (or gill_tpu's) writes them."""
     path = ckpt_dir if os.path.exists(os.path.join(ckpt_dir, "state.npz")) \
         else os.path.join(ckpt_dir, "ckpt")
     with np.load(os.path.join(path, "state.npz"), allow_pickle=False) as z:

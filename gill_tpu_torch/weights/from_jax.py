@@ -81,7 +81,7 @@ def tree_to_numpy(tree):
     t = tree.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return np.ascontiguousarray(t.numpy())
+    return np.array(t.numpy(), order="C")     # a 0-d leaf stays 0-d
 
 
 def _expect(tree, keys, what):

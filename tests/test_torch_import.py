@@ -43,7 +43,11 @@ for needed in ("gill_tpu_torch.serve.engine", "gill_tpu_torch.serve.gill_engine"
                "gill_tpu_torch.serve.speculative",
                "gill_tpu_torch.weights.loader",
                "gill_tpu_torch.weights.convert",
-               "gill_tpu_torch.models.safety"):
+               "gill_tpu_torch.models.safety",
+               "gill_tpu_torch.main", "gill_tpu_torch.train.trainer",
+               "gill_tpu_torch.train.validate", "gill_tpu_torch.train.losses",
+               "gill_tpu_torch.train.bleu", "gill_tpu_torch.data.dataset",
+               "gill_tpu_torch.utils.tb", "gill_tpu_torch.utils.meters"):
     assert needed in names, needed
 assert not bad, bad
 """
