@@ -148,7 +148,41 @@
    (H4) one step with the LM in W8: finite, the adapters moved, the loss
    within 5e-2 of the bf16 loss, K4 not launched under grad. It prints
    the card's name and power limit and its `phase_s`.
-11. Checks: finite outputs of the expected shapes; request (a) gives the
+11. The distributed layer (slice 14), phase I, after phase H with every
+   earlier model freed: rank groups share cuda:0 over gloo
+   (`gill_tpu_torch.parallel.launch.run_ranks`: a file-store rendezvous,
+   a process-group timeout and a join limit; a failed or hung rank fails
+   the phase). (I1) OPT-6.7B at full width, bf16, random from one seed in
+   every process: `DecodeEngine` at tp 1 here, then `DecodeEngine(mesh=,
+   device=)` at tp 2, each rank handing it the tree on the host so that
+   only its shard reaches the card, over the trace's first 16 requests, budgets capped at 64: each
+   request's tokens against tp 1 (the share equal, the first
+   divergence), a teacher-forced prefill's last hidden states within
+   I_HIDDEN_RTOL, K1 and K6 launches a rank, tokens/s, each rank's gates
+   and plans (K1 at h16 d128 causal, K6 at 16 heads for the rank's
+   pool); then 8 of the 32 layers in fp32, every token equal to tp 1's,
+   and a registered prefix reused; then a world of 1 on NCCL through the
+   mesh code path, tokens equal to the plain engine's. (I2) the train step
+   at full width on a global batch of 16, in one process, then at dp 2 (8
+   rows a rank, unequal valid-token counts) and at tp 2: the loss within
+   I_LOSS_RTOL, every adapter gradient at cosine >= I_GRAD_COS and its
+   norm within I_GRAD_NORM_REL, adapters after the update bit for bit
+   equal across the ranks, K2 launched and
+   K1 / K4 not on each rank; the dp-2 ranks also build the 2.9M x 256
+   index sharded over "data", top-3 ids and scores bit for bit the
+   one-process index's (whose topk_batch is timed beside the one product
+   it took before its scores were windowed); an fp32 control (4 of 32
+   layers) at dp 2, its gradients held to I_GRAD_COS_FP32 and
+   I_GRAD_NORM_REL_FP32.
+   (I3) `python -m torch.distributed.run --nproc-per-node 2 -m
+   gill_tpu_torch.main ... --dp-size 2 --ckpt-backend orbax` at phase H's
+   width, batch 16: two steps, the validations, `orbax_2/`, the losses
+   finite and equal on both ranks, one TensorBoard file (rank 0), the
+   checkpoint as read back equal to torch.distributed.checkpoint's own
+   reading, then a one-step resume from it on both ranks. Prints each
+   part's report, memory per rank, `phase_s` and the card's name and
+   power limit.
+12. Checks: finite outputs of the expected shapes; request (a) gives the
    same tokens with every kernel swapped for its plain version; CLIP, the
    OPT prefill, one full-width UNet step, the VAE decode and one W8 decode
    step of phase A agree with their plain-version runs within stated
@@ -3433,6 +3467,803 @@ def phase_h(torch, dev):
     return rep, failures
 
 
+# ---------------------------------------------------------------------------
+# phase I: the distributed layer (slice 14)
+# ---------------------------------------------------------------------------
+
+# I1: the bf16 teacher-forced prefill's last hidden states at tp 2 against
+# tp 1, as ||a - b|| / ||b|| over every position (stated before the first
+# run on the card: the row-parallel products sum two bf16 partials where
+# tp 1 sums one product's fp32 accumulator, a rounding of ~2^-9 a reduce,
+# 64 reduces deep)
+I_HIDDEN_RTOL = 3e-2
+I_SEED, I_FP32_LAYERS, I_REQS, I_BUDGET = 5, 8, 16, 64
+I_SLOTS, I_MAX_SEQ, I_CHUNK = 16, 512, 32
+# I2: the step at dp 2 and tp 2 against one process's on the same global
+# batch of 16: the loss within I_LOSS_RTOL, every adapter gradient at a
+# cosine >= I_GRAD_COS, the adapters after the update bit for bit equal
+# across the ranks. The cosine limit is 0.99, not 0.999: in bf16 the
+# worst leaf (the GILLMapper decoder's cross-attention q weight) read
+# 0.9934 at dp 2 and 0.9930 at tp 2 on the card, the loss 9e-6 off, as
+# the frozen LM's bf16 products take other roundings at 8 rows a rank or
+# as two partial sums; the fp32 control (I_CONTROL_LAYERS of the 32
+# layers at full width, dp 2) holds the same gradients to I_GRAD_COS_FP32.
+# A cosine does not see a gradient's scale (a sum taken twice over "data"
+# or "model" doubles it, and the loss and AdamW's update barely move), so
+# every leaf's norm must also lie within I_GRAD_NORM_REL of one process's:
+# the sound steps read 0.025 (dp 2) and 0.028 (tp 2) in bf16 and 1.2e-5
+# in the fp32 control on the card, a doubled gradient reads 1.0
+I_LOSS_RTOL, I_GRAD_COS, I_BATCH = 1e-3, 0.99, 16
+I_GRAD_COS_FP32, I_CONTROL_LAYERS = 0.9999, 4
+I_GRAD_NORM_REL, I_GRAD_NORM_REL_FP32 = 0.1, 1e-4
+I_INDEX_ROWS = 2_900_000
+I_GROUP_TIMEOUT, I_PG_TIMEOUT = 420.0, 300.0
+# where the rank functions live and run (a CPU rehearsal at tiny widths
+# points these elsewhere)
+I_MODULE, I_DEVICE, I_CLI_EXTRA = "chip_smoke", "cuda", ()
+
+
+def _i_device(torch):
+    if I_DEVICE == "cpu":
+        return torch.device("cpu")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _i_opt(torch, dev, dtype, layers=None, seed=I_SEED, host=False):
+    """OPT-6.7B at full width (`layers` of its 32), random from `seed` on
+    the card: the same bits in every process. `host`: the same tree on the
+    host, each leaf drawn on the card and copied out (the card holds one
+    leaf at a time)."""
+    import dataclasses
+
+    from gill_tpu_torch.config import OPTConfig
+    from gill_tpu_torch.models import opt as opt_mod
+    from gill_tpu_torch.nn.core import Init
+
+    class HostInit(Init):
+        def uniform(self, *a, **k):
+            return super().uniform(*a, **k).cpu()
+
+        def normal(self, *a, **k):
+            return super().normal(*a, **k).cpu()
+
+        def full(self, *a, **k):
+            return super().full(*a, **k).cpu()
+
+    cfg = OPTConfig.from_name("facebook/opt-6.7b")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    g = torch.Generator(dev).manual_seed(seed)
+    return opt_mod.init((HostInit if host else Init)(g, dev, dtype),
+                        cfg), cfg
+
+
+def _i_requests(prefix=None):
+    """The trace's first I_REQS requests, budgets capped at I_BUDGET; with
+    `prefix`, every prompt starts with it and names its id."""
+    reqs = serve_trace(I_REQS)
+    for r in reqs:
+        r.max_new_tokens = min(r.max_new_tokens, I_BUDGET)
+        if prefix is not None:
+            r.prompt = prefix[0] + r.prompt[:64]
+            r.prefix_id = prefix[1]
+    return reqs
+
+
+def _i_prefix_tokens():
+    import numpy as np
+
+    return np.random.RandomState(3).randint(2, 1000, size=48).tolist()
+
+
+def _i_serve(torch, params, cfg, dtype, mesh, device=None):
+    """DecodeEngine over the trace (run_pipelined), a teacher-forced prefill
+    of the first two prompts, and for fp32 a prefix registered and reused:
+    tokens, hidden states, tokens/s and launches. `device`: the engine's,
+    for a tree on the host."""
+    import numpy as np
+
+    from gill_tpu_torch.models import opt as opt_mod
+    from gill_tpu_torch.serve.engine import DecodeEngine, to_device
+
+    eng = DecodeEngine(params, cfg, slots=I_SLOTS, max_seq=I_MAX_SEQ,
+                       chunk=I_CHUNK, kv_dtype=dtype, mesh=mesh,
+                       device=device)
+    rep = {"kv_heads": int(eng.cache["k"].shape[3])}
+    reqs = _i_requests()
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = eng.run_pipelined(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rep["launches"] = read_launches()
+    rep["tokens"] = {u: out[u] for u in sorted(out)}
+    rep["tokens_per_s"] = sum(len(v) for v in out.values()) / dt
+    rep["serve_s"] = dt
+    # the run's wall time over its decode steps (its one prefill wave
+    # included): what a step costs, the reduces of tp 2 included
+    rep["ms_a_decode_step"] = 1e3 * dt / eng.stats["decode_steps"]
+    if dtype == torch.bfloat16:
+        toks = np.ones((2, 256), np.int64)
+        for i, r in enumerate(reqs[:2]):
+            toks[i, :len(r.prompt)] = r.prompt
+        small = eng._small_cache(2, 256)
+        with torch.no_grad():
+            h = opt_mod.forward(
+                eng.params, cfg, opt_mod.embed_tokens(
+                    eng.params, to_device(toks, eng.device)),
+                cache=small, cache_pos=0, skip_logits=True, mesh=mesh)
+        rep["hidden"] = h["last_hidden"].float().cpu()
+    else:
+        pfx = _i_prefix_tokens()
+        pid = eng.register_prefix(pfx)
+        zero_launches()
+        pout = eng.run_pipelined(_i_requests((pfx, pid)))
+        rep["prefix_launches"] = read_launches()
+        rep["prefix_tokens"] = {u: pout[u] for u in sorted(pout)}
+        rep["prefix_hits"] = eng.stats["prefix_hits"]
+    del eng
+    torch.cuda.empty_cache()
+    return rep
+
+
+def _i_gates(torch, heads: int, head_dim: int, failures):
+    """The kernels' gates and plans at a rank's shapes: K1 takes the causal
+    prefill at its heads and head dim, K6 plans for the rank's pool; a
+    refusal is a failure, never a quiet plain path."""
+    from gill_tpu_torch.ops import attention as attn
+    from gill_tpu_torch.ops import decode_attn
+
+    rep = {}
+    ok = attn.flash_eligible(on_cuda=True, t=256, s=256, has_bias=False,
+                             has_kv_offset=False, impl="auto", causal=True)
+    rep["k1_eligible"] = ok
+    rep["k1_plan"] = str(attn.flash_plan(torch.bfloat16, I_SLOTS, 256,
+                                         heads, head_dim))
+    plan = decode_attn.decode_plan(I_SLOTS, I_MAX_SEQ, heads, head_dim)
+    rep["k6_plan"] = str(plan)
+    c = decode_attn.c_plan(I_SLOTS, I_MAX_SEQ, heads, head_dim,
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
+    rep["k6_c_plan"] = c
+    rep["k6_heads_a_block"] = plan.heads
+    if not ok:
+        failures.append(f"I1: K1's gate refuses h{heads} d{head_dim}")
+    if c is None or c[0] != plan.heads:
+        failures.append(f"I1: K6's C side plans {c} for {plan}")
+    return rep
+
+
+def i1_rank(workdir: str):
+    """One rank of the tp = world group: OPT-6.7B bf16 served over the trace
+    with the teacher-forced prefill, then 8 of 32 layers in fp32 with a
+    prefix; each built whole on the host from the seed's draws, the engine
+    moving only this rank's shard to the card."""
+    import torch
+
+    from gill_tpu_torch.parallel import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = _i_device(torch)
+    mesh = create_mesh(1, torch.distributed.get_world_size())
+    failures = []
+    rep = {"coords": mesh.coords}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, cfg = _i_opt(torch, dev, torch.bfloat16, host=True)
+    rep["host_tree_s"] = time.perf_counter() - t0
+    rep["gates"] = _i_gates(torch, cfg.num_heads // mesh.tp, cfg.head_dim,
+                            failures)
+    rep["bf16"] = _i_serve(torch, params, cfg, torch.bfloat16, mesh, dev)
+    del params
+    torch.cuda.empty_cache()
+    rep["bf16_max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    params, cfg = _i_opt(torch, dev, torch.float32, I_FP32_LAYERS,
+                         I_SEED + 1, host=True)
+    rep["fp32"] = _i_serve(torch, params, cfg, torch.float32, mesh, dev)
+    del params
+    torch.cuda.empty_cache()
+    rep["failures"] = failures
+    return rep
+
+
+def i1_nccl_rank(workdir: str):
+    """A world of 1 on NCCL through the mesh code path: the fp32 engine's
+    tokens (8 of 32 layers), and an NCCL all-gather of them."""
+    import torch
+
+    from gill_tpu_torch.parallel import create_mesh
+    from gill_tpu_torch.parallel.collectives import all_equal
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = _i_device(torch)
+    mesh = create_mesh(1, 1)
+    params, cfg = _i_opt(torch, dev, torch.float32, I_FP32_LAYERS,
+                         I_SEED + 1)
+    rep = _i_serve(torch, params, cfg, torch.float32, mesh)
+    del params
+    flat = torch.tensor([t for u in sorted(rep["tokens"])
+                         for t in rep["tokens"][u]], device=dev)
+    rep["nccl_all_gather_equal"] = all_equal(flat)
+    rep["backend"] = str(torch.distributed.get_backend())
+    for k in ("prefix_tokens", "prefix_launches"):
+        rep.pop(k, None)
+    return rep
+
+
+def _i_cmp_tokens(got: dict, want: dict) -> dict:
+    same = sum(got[u] == want[u] for u in want)
+    diffs = {u: first_diff(got[u], want[u]) for u in want
+             if got[u] != want[u]}
+    first = min(diffs.values()) if diffs else None
+    return {"requests_equal": same, "requests": len(want),
+            "share_equal": same / len(want), "first_divergence": first}
+
+
+def phase_i1(torch, dev, tmp, failures):
+    from gill_tpu_torch.parallel.launch import run_ranks
+
+    rep = {}
+    t0 = time.perf_counter()
+    params, cfg = _i_opt(torch, dev, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    ref16 = _i_serve(torch, params, cfg, torch.bfloat16, None)
+    rep["tp1_bf16_max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+    params, cfg = _i_opt(torch, dev, torch.float32, I_FP32_LAYERS,
+                         I_SEED + 1)
+    ref32 = _i_serve(torch, params, cfg, torch.float32, None)
+    del params
+    torch.cuda.empty_cache()
+    rep["tp1_s"] = time.perf_counter() - t0
+    rep["tp1_bf16_tokens_per_s"] = ref16["tokens_per_s"]
+    rep["tp1_bf16_ms_a_decode_step"] = ref16["ms_a_decode_step"]
+    rep["tp1_fp32_tokens_per_s"] = ref32["tokens_per_s"]
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(f"{I_MODULE}:i1_rank", 2, {"workdir": tmp},
+                      workdir=os.path.join(tmp, "i1"), timeout=I_GROUP_TIMEOUT,
+                      device=I_DEVICE, pg_timeout=I_PG_TIMEOUT,
+                      pythonpath=[REPO], threads=4)
+    rep["tp2_group_s"] = time.perf_counter() - t0
+    per = []
+    for r, out in enumerate(ranks):
+        failures += [f"rank {r}: {f}" for f in out["failures"]]
+        b16, b32 = out["bf16"], out["fp32"]
+        a, b = b16["hidden"], ref16["hidden"]
+        rel = float((a - b).norm() / b.norm())
+        row = {"rank": r, "coords": out["coords"], "gates": out["gates"],
+               "kv_heads": b16["kv_heads"],
+               "bf16_vs_tp1": _i_cmp_tokens(b16["tokens"], ref16["tokens"]),
+               "bf16_hidden_rel": rel,
+               "bf16_hidden_max_abs": float((a - b).abs().max()),
+               "bf16_tokens_per_s": b16["tokens_per_s"],
+               "bf16_ms_a_decode_step": b16["ms_a_decode_step"],
+               "fp32_vs_tp1": _i_cmp_tokens(b32["tokens"], ref32["tokens"]),
+               "fp32_prefix_vs_tp1": _i_cmp_tokens(b32["prefix_tokens"],
+                                                   ref32["prefix_tokens"]),
+               "prefix_hits": b32["prefix_hits"],
+               "k1_launches": b16["launches"]["flash_attention"],
+               "k6_launches": b16["launches"]["prefix_decode_attention"],
+               "fp32_k1_launches": b32["launches"]["flash_attention"],
+               "fp32_k6_launches": b32["launches"][
+                   "prefix_decode_attention"],
+               "max_memory_gb": out["bf16_max_memory_gb"],
+               "host_tree_s": out["host_tree_s"]}
+        per.append(row)
+        if rel > I_HIDDEN_RTOL:
+            failures.append(f"I1 rank {r}: hidden rel {rel} > "
+                            f"{I_HIDDEN_RTOL}")
+        if row["fp32_vs_tp1"]["share_equal"] < 1:
+            failures.append(f"I1 rank {r}: fp32 tokens differ from tp 1: "
+                            f"{row['fp32_vs_tp1']}")
+        if row["fp32_prefix_vs_tp1"]["share_equal"] < 1 or \
+                b32["prefix_hits"] != I_REQS:
+            failures.append(f"I1 rank {r}: prefix run "
+                            f"{row['fp32_prefix_vs_tp1']}, hits "
+                            f"{b32['prefix_hits']}")
+        # K6 takes bf16 caches only (decode_attn.supported): the fp32 run
+        # decodes on the plain path
+        for k in ("k1_launches", "k6_launches", "fp32_k1_launches"):
+            if row[k] <= 0:
+                failures.append(f"I1 rank {r}: {k} = 0")
+        if b16["kv_heads"] != 16:
+            failures.append(f"I1 rank {r}: pool heads {b16['kv_heads']}")
+        # a rank holds its shard, not the tree
+        if row["max_memory_gb"] >= rep["tp1_bf16_max_memory_gb"]:
+            failures.append(f"I1 rank {r}: peak {row['max_memory_gb']} GB "
+                            f"against tp 1's "
+                            f"{rep['tp1_bf16_max_memory_gb']} GB")
+    if ranks[0]["bf16"]["tokens"] != ranks[1]["bf16"]["tokens"]:
+        failures.append("I1: the two tp ranks' tokens differ")
+    rep["tp2"] = per
+    rep["tp2_vs_tp1_tokens_per_s"] = (per[0]["bf16_tokens_per_s"]
+                                      / ref16["tokens_per_s"])
+
+    t0 = time.perf_counter()
+    (nccl,) = run_ranks(f"{I_MODULE}:i1_nccl_rank", 1, {"workdir": tmp},
+                        workdir=os.path.join(tmp, "i1n"),
+                        timeout=I_GROUP_TIMEOUT, device=I_DEVICE,
+                        pg_timeout=I_PG_TIMEOUT, pythonpath=[REPO],
+                        threads=4)
+    rep["nccl_world1"] = {
+        "backend": nccl["backend"], "s": time.perf_counter() - t0,
+        "all_gather_equal": nccl["nccl_all_gather_equal"],
+        "vs_plain": _i_cmp_tokens(nccl["tokens"], ref32["tokens"]),
+        "k1_launches": nccl["launches"]["flash_attention"]}
+    if "nccl" not in nccl["backend"] or \
+            rep["nccl_world1"]["vs_plain"]["share_equal"] < 1 or \
+            not nccl["nccl_all_gather_equal"]:
+        failures.append(f"I1 NCCL world 1: {rep['nccl_world1']}")
+    return rep
+
+
+def _i_train_setup(torch, dev, root, tok_dir, mesh, dtype=None,
+                   layers=None):
+    """Phase H's model at full width (OPT-6.7B + ViT-L/14 frozen in `dtype`,
+    default bf16, `layers` of OPT's 32; fp32 adapters; the OPT-sized
+    tokenizer) from seed 0, and the global batch's first I_BATCH
+    examples."""
+    import dataclasses
+
+    from gill_tpu_torch.config import GILLConfig, TrainConfig
+    from gill_tpu_torch.models.gill import GILLCore
+    from gill_tpu_torch.nn.core import Init
+    from gill_tpu_torch.tokenizer import GPT2BPETokenizer, setup_gill_tokenizer
+    from gill_tpu_torch.weights import loader as wloader
+
+    tok = GPT2BPETokenizer.from_pretrained_dir(tok_dir)
+    ids = setup_gill_tokenizer(tok, 8)
+    cfg = GILLConfig(retrieval_token_idx=tuple(ids), gen_token_idx=tuple(ids))
+    core = GILLCore.build(cfg, vocab_len=len(tok), img_start=ids[0],
+                          pad_token_id=tok.pad_token_id,
+                          bos_token_id=tok.bos_token_id, mesh=mesh)
+    if layers is not None:
+        core = dataclasses.replace(core, opt_cfg=dataclasses.replace(
+            core.opt_cfg, num_layers=layers))
+    dtype = dtype or torch.bfloat16
+    frozen = {"lm": wloader.load_opt(cfg.opt_version, core.opt_cfg, len(tok),
+                                     None, 0, device=dev, dtype=dtype),
+              "vision": wloader.load_clip_vision(
+                  cfg.visual_encoder, core.vis_cfg, None, 1, device=dev,
+                  dtype=dtype)}
+    adapters = core.init_adapters(Init(torch.Generator(dev).manual_seed(0),
+                                       dev, torch.float32))
+    tc = TrainConfig(batch_size=I_BATCH, lr=1e-3, lr_warmup_steps=0,
+                     steps_per_epoch=100)
+    batch = _h_batch(torch, dev, root, core, I_BATCH)
+    batch["pixels"] = batch["pixels"].to(dtype)
+    return core, frozen, adapters, tc, batch
+
+
+def _i_step(torch, core, frozen, adapters, tc, batch):
+    """One train step; returns (loss, the summed adapter gradients, the
+    adapters after the update, launches)."""
+    from gill_tpu_torch.train import trainer as trainer_mod
+
+    seen = {}
+    orig = trainer_mod.sum_over_data
+
+    def capture(grads, mesh):
+        out = orig(grads, mesh)
+        seen["grads"] = [g.detach().clone() for g in out]
+        return out
+
+    trainer_mod.sum_over_data = capture
+    try:
+        state = trainer_mod.init_state(tc, adapters)
+        step = trainer_mod.make_train_step(core, tc)
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        state, m = step(state, frozen, batch)
+        loss = float(m["loss"])
+        s = time.perf_counter() - t0
+    finally:
+        trainer_mod.sum_over_data = orig
+    return loss, seen["grads"], state.adapters, read_launches(), s
+
+
+def _i_digest(torch, tree) -> str:
+    import hashlib
+
+    from gill_tpu_torch.nn.core import tree_leaves
+
+    h = hashlib.sha1()
+    for leaf in tree_leaves(tree):
+        h.update(leaf.detach().reshape(-1).contiguous().view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _i_index(torch, dev, mesh):
+    """The main path's 2.9M x 256 index (build_model's seed), top-3 of four
+    queries with seen ids. In one process also the median ms of
+    `topk_batch` (its 65,536-row products) and of the one product over
+    every row that scored a query before (the same seen-id penalty and
+    top-3, as numpy), timed alike."""
+    from gill_tpu_torch.retrieval import RetrievalIndex
+
+    n = I_INDEX_ROWS
+    g = torch.Generator(dev).manual_seed(7)
+    emb = torch.randn(n, 256, device=dev, generator=g)
+    idx = RetrievalIndex([str(i) for i in range(n)], emb, 14.285, device=dev,
+                         mesh=mesh)
+    del emb
+    q = torch.randn(4, 256, device=dev,
+                    generator=torch.Generator(dev).manual_seed(8))
+    seen = [[0, n - 1], [], [n // 2], [17, 17]]
+    vals, ids = idx.topk_batch(q, 3, seen)
+    info = {"rows": idx.rows}
+    if mesh is None:
+        def one_product():
+            s = q @ idx.matrix.t()
+            for i, sn in enumerate(seen):
+                if sn:
+                    s[i].index_add_(0, torch.as_tensor(sn, device=dev),
+                                    torch.full((len(sn),), -1000.0,
+                                               device=dev))
+            v, i = torch.topk(s, 3, dim=-1)
+            return v.cpu().numpy(), i.cpu().numpy()
+
+        for name, fn in (("topk_batch", lambda: idx.topk_batch(q, 3, seen)),
+                         ("one_product", one_product)):
+            ms = []
+            for _ in range(7):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            info[name + "_ms"] = sorted(ms[1:])[len(ms[1:]) // 2]
+        info["one_product_ids_equal"] = bool(
+            (one_product()[1] == ids).all())
+    del idx
+    torch.cuda.empty_cache()
+    return vals, ids, info
+
+
+def _i_rank_step(torch, dev, workdir, mesh, ref_name, dtype=None,
+                 layers=None):
+    """This rank's step at `mesh` on its rows of the global batch, against
+    the one-process gradients saved as `ref_name` in `workdir`."""
+    from gill_tpu_torch.parallel.partition import shard_params, split_batch
+
+    torch.cuda.reset_peak_memory_stats()
+    core, frozen, adapters, tc, batch = _i_train_setup(
+        torch, dev, os.path.join(workdir, "data"),
+        os.path.join(workdir, "tokenizer"), mesh, dtype, layers)
+    if mesh.tp > 1:
+        frozen = shard_params(frozen, mesh)
+    local = split_batch(batch, mesh)
+    loss, grads, after, launches, s = _i_step(torch, core, frozen, adapters,
+                                              tc, local)
+    ref = torch.load(os.path.join(workdir, ref_name))
+    names = _leaf_paths(adapters)
+    # the key projections' biases add one constant to every score of a
+    # query, which the softmax removes: their gradients are 0 in exact
+    # arithmetic and rounding noise on the card, so they are left out of
+    # the cosines (their norm against the largest leaf's is reported)
+    keep = [i for i, n in enumerate(names) if not n.endswith("/k/b")]
+    want = [ref["grads"][i].to(dev) for i in keep]
+    agree = _grad_agreement(torch, [grads[i] for i in keep], want,
+                            [names[i] for i in keep])
+    top = max(float(g.norm()) for g in want)
+    agree["k_bias_norm_share"] = max(
+        [float(grads[i].norm()) / top for i in range(len(names))
+         if i not in keep] or [0.0])
+    rep = {"coords": mesh.coords, "loss": loss, "ref_loss": ref["loss"],
+           "step_s": s, "grads": agree, "digest": _i_digest(torch, after),
+           "launches": launches, "rows": int(local["pixels"].shape[0]),
+           "valid_tokens": int(local["ret_len"].sum()),
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del core, frozen, adapters, after, grads, batch, local
+    torch.cuda.empty_cache()
+    return rep
+
+
+def i2_rank(workdir: str, dp: int, tp: int):
+    """One rank of I2: the bf16 step at mesh (dp, tp); at dp 2 also the fp32
+    control and the sharded index."""
+    import torch
+
+    from gill_tpu_torch.parallel import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = _i_device(torch)
+    mesh = create_mesh(dp, tp)
+    rep = _i_rank_step(torch, dev, workdir, mesh, "i2_ref.pt")
+    if dp == 2:
+        rep["control"] = _i_rank_step(torch, dev, workdir, mesh,
+                                      "i2_ref32.pt", torch.float32,
+                                      I_CONTROL_LAYERS)
+        vals, ids, info = _i_index(torch, dev, mesh)
+        rep["index"] = {"vals": vals, "ids": ids, "rows": info["rows"]}
+    return rep
+
+
+def _i_reference(torch, dev, tmp, name, dtype=None, layers=None):
+    """The one-process step on the whole global batch; saves its loss and
+    gradients as `name` for the ranks. Returns (report, digest, batch
+    valid-token counts of the two halves)."""
+    torch.cuda.reset_peak_memory_stats()
+    core, frozen, adapters, tc, batch = _i_train_setup(
+        torch, dev, os.path.join(tmp, "data"),
+        os.path.join(tmp, "tokenizer"), None, dtype, layers)
+    loss, grads, after, launches, s = _i_step(torch, core, frozen, adapters,
+                                              tc, batch)
+    torch.save({"loss": loss, "grads": [g.cpu() for g in grads]},
+               os.path.join(tmp, name))
+    lens = batch["ret_len"]
+    half = I_BATCH // 2
+    rep = {"loss": loss, "step_s": s, "launches": launches,
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    digest = _i_digest(torch, after)
+    halves = [int(lens[:half].sum()), int(lens[half:].sum())]
+    del core, frozen, adapters, after, grads, batch
+    torch.cuda.empty_cache()
+    return rep, digest, halves
+
+
+def _i_step_row(r, out, cos_limit, norm_limit, key, failures):
+    rel = abs(out["loss"] - out["ref_loss"]) / abs(out["ref_loss"])
+    row = {"rank": r, "coords": out["coords"], "loss": out["loss"],
+           "loss_rel": rel, "grad_min_cos": out["grads"]["min_cos"],
+           "grad_min_cos_leaf": out["grads"]["min_cos_leaf"],
+           "grad_max_norm_rel": out["grads"]["max_norm_rel"],
+           "grad_max_norm_rel_leaf": out["grads"]["max_norm_rel_leaf"],
+           "k_bias_norm_share": out["grads"]["k_bias_norm_share"],
+           "step_s": out["step_s"], "rows": out["rows"],
+           "valid_tokens": out["valid_tokens"],
+           "k2_launches": out["launches"]["flash_mma"],
+           "k1_launches": out["launches"]["flash_attention"],
+           "k4_launches": out["launches"]["w8_matmul"],
+           "max_memory_gb": out["max_memory_gb"]}
+    if rel > I_LOSS_RTOL:
+        failures.append(f"I2 {key} rank {r}: loss rel {rel}")
+    if row["grad_min_cos"] < cos_limit:
+        failures.append(f"I2 {key} rank {r}: gradient cosine "
+                        f"{row['grad_min_cos']} at "
+                        f"{row['grad_min_cos_leaf']}")
+    if row["grad_max_norm_rel"] > norm_limit:
+        failures.append(f"I2 {key} rank {r}: gradient norm rel "
+                        f"{row['grad_max_norm_rel']} at "
+                        f"{out['grads']['max_norm_rel_leaf']}")
+    return row
+
+
+def phase_i2(torch, dev, tmp, failures):
+    from gill_tpu_torch.data.dataset import make_stub_dataset
+    from gill_tpu_torch.parallel.launch import run_ranks
+
+    rep = {}
+    root = os.path.join(tmp, "data")
+    make_stub_dataset(root, n=2 * I_BATCH, image_size=224,
+                      num_clip_tokens=77, gen_emb_dim=768, split="train")
+    make_stub_dataset(root, n=I_BATCH, image_size=224, num_clip_tokens=77,
+                      gen_emb_dim=768, split="val")
+    write_opt_sized_tokenizer(os.path.join(tmp, "tokenizer"))
+    t0 = time.perf_counter()
+    rep["one_process"], digest, rep["valid_tokens_halves"] = _i_reference(
+        torch, dev, tmp, "i2_ref.pt")
+    rep["one_process_fp32_control"], _, _ = _i_reference(
+        torch, dev, tmp, "i2_ref32.pt", torch.float32, I_CONTROL_LAYERS)
+    ref_vals, ref_ids, rep["one_process_index"] = _i_index(torch, dev, None)
+    rep["one_process_s"] = time.perf_counter() - t0
+
+    for dp, tp in ((2, 1), (1, 2)):
+        t0 = time.perf_counter()
+        ranks = run_ranks(f"{I_MODULE}:i2_rank", dp * tp,
+                          {"workdir": tmp, "dp": dp, "tp": tp},
+                          workdir=os.path.join(tmp, f"i2_{dp}{tp}"),
+                          timeout=I_GROUP_TIMEOUT, device=I_DEVICE,
+                          pg_timeout=I_PG_TIMEOUT, pythonpath=[REPO],
+                          threads=4)
+        key = f"dp{dp}_tp{tp}"
+        rows = []
+        for r, out in enumerate(ranks):
+            row = _i_step_row(r, out, I_GRAD_COS, I_GRAD_NORM_REL, key,
+                              failures)
+            row["adapters_equal_one_process"] = out["digest"] == digest
+            if "control" in out:
+                row["fp32_control"] = _i_step_row(
+                    r, out["control"], I_GRAD_COS_FP32, I_GRAD_NORM_REL_FP32,
+                    key + " fp32", failures)
+            if "index" in out:
+                ix = out["index"]
+                row["index_rows"] = ix["rows"]
+                row["index_ids_equal"] = bool((ix["ids"] == ref_ids).all())
+                row["index_scores_equal"] = bool(
+                    (ix["vals"] == ref_vals).all())
+                row["index_max_abs"] = float(abs(ix["vals"] - ref_vals)
+                                             .max())
+                if not (row["index_ids_equal"] and
+                        row["index_scores_equal"]):
+                    failures.append(f"I2 {key} rank {r}: index {row}")
+            rows.append(row)
+            if row["k2_launches"] <= 0 or row["k1_launches"] or \
+                    row["k4_launches"]:
+                failures.append(f"I2 {key} rank {r}: launches "
+                                f"{out['launches']}")
+        digests = {out["digest"] for out in ranks}
+        if len(digests) != 1 or len({out["control"]["digest"] for out in
+                                     ranks if "control" in out}) > 1:
+            failures.append(f"I2 {key}: adapters differ across ranks")
+        rep[key] = {"ranks": rows, "group_s": time.perf_counter() - t0,
+                    "adapters_equal_across_ranks": len(digests) == 1}
+    if rep["dp2_tp1"]["ranks"][0]["valid_tokens"] == \
+            rep["dp2_tp1"]["ranks"][1]["valid_tokens"]:
+        failures.append("I2: the dp ranks hold equal valid-token counts")
+    return rep
+
+
+def _i_torchrun(torch, argv, log_dir, timeout):
+    """`python -m torch.distributed.run --standalone --nproc-per-node 2`
+    of the port's CLI; each rank's stdout from its own log file."""
+    import glob
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "--log-dir", log_dir, "--redirects", "3",
+           "-m", "gill_tpu_torch.main", *argv]
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="4")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+    try:
+        tail, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise TimeoutError(f"torch.distributed.run did not end in {timeout} "
+                           "s")
+    outs = []
+    for r in (0, 1):
+        files = sorted(glob.glob(os.path.join(log_dir, "**", str(r),
+                                              "stdout.log"), recursive=True))
+        outs.append(open(files[-1]).read() if files else "")
+    return proc.returncode, tail.decode(errors="replace")[-3000:], outs, \
+        time.perf_counter() - t0
+
+
+def _i_stderr(log_dir: str) -> str:
+    import glob
+
+    return "".join(f"\n--- {p} ---\n" + open(p).read()[-2000:] for p in
+                   sorted(glob.glob(os.path.join(log_dir, "**", "stderr.log"),
+                                    recursive=True)))
+
+
+def _i_losses(text: str) -> list:
+    """The `loss <val>` of every train meter line."""
+    import re
+
+    return [m.group(1) for line in text.splitlines()
+            if line.startswith("Epoch: [")
+            for m in [re.search(r"\bloss ([-+.eE0-9naif]+)", line)] if m]
+
+
+def phase_i3(torch, tmp, failures):
+    """The CLI on two ranks through torch.distributed.run at phase H's
+    width: two steps, validations, `orbax_2/`, then a one-step resume."""
+    import numpy as np
+
+    from gill_tpu_torch.nn.core import tree_leaves
+    from gill_tpu_torch.utils import ckpt as ckpt_utils
+
+    rep = {}
+    root, runs = os.path.join(tmp, "data"), os.path.join(tmp, "runs")
+    base = ["--batch-size", str(I_BATCH), "--val-batch-size", str(I_BATCH),
+            "--val-steps-per-epoch", "1", "--seed", "0", "--precision",
+            "bf16", "--lr-warmup-steps", "2", "--print-freq", "1",
+            "--workers", "4", "--dataset-dir", os.path.join(root, "datasets"),
+            "--image-dir", root, "--log-base-dir", runs, "--tokenizer-dir",
+            os.path.join(tmp, "tokenizer"), "--dp-size", "2",
+            "--ckpt-backend", "orbax", "--device", I_DEVICE, *I_CLI_EXTRA]
+    first = base + ["--exp-name", "i3", "--epochs", "1",
+                    "--steps-per-epoch", "2"]
+    rc, tail, outs, s = _i_torchrun(torch, first, os.path.join(tmp, "l1"),
+                                    I_GROUP_TIMEOUT)
+    rep["run_s"] = s
+    losses = [_i_losses(o) for o in outs]
+    rep["losses"] = losses
+    if rc != 0:
+        failures.append(f"I3: the two-rank run exited {rc}: {tail}"
+                        + _i_stderr(os.path.join(tmp, "l1")))
+        return rep
+    if len(losses[0]) != 2 or losses[0] != losses[1] or not all(
+            math.isfinite(float(x)) for x in losses[0]):
+        failures.append(f"I3: losses {losses}")
+    log_dir = os.path.join(runs, "i3")
+    events = [f for f in os.listdir(log_dir)
+              if f.startswith("events.out.tfevents.")]
+    rep["tb_event_files"] = len(events)
+    rep["run_dirs"] = sorted(os.listdir(runs))
+    if len(events) != 1 or rep["run_dirs"] != ["i3"]:
+        failures.append(f"I3: TB files {events}, run dirs {rep['run_dirs']}")
+    saved, meta = ckpt_utils.load_checkpoint_orbax(log_dir)
+    rep["meta"] = meta
+    # the restore path against torch.distributed.checkpoint's own reader
+    from torch.distributed.checkpoint.format_utils import dcp_to_torch_save
+
+    conv = os.path.join(tmp, "orbax_2.pt")
+    dcp_to_torch_save(os.path.join(log_dir, "orbax_2"), conv)
+    raw = torch.load(conv)
+    flat = ckpt_utils._flatten(saved)
+    rep["leaves"] = len(flat)
+    mism = [k for k in raw if k not in flat or not np.array_equal(
+        np.asarray(raw[k]), flat[k])]
+    rep["restore_mismatches"] = len(mism) + len(set(flat) - set(raw))
+    if meta.get("step") != 2 or rep["restore_mismatches"]:
+        failures.append(f"I3: orbax_2 meta {meta}, {mism[:3]}")
+    resume = base + ["--exp-name", "i3r", "--epochs", "2",
+                     "--steps-per-epoch", "1", "--resume", log_dir]
+    rc, tail, outs, s = _i_torchrun(torch, resume, os.path.join(tmp, "l2"),
+                                    I_GROUP_TIMEOUT)
+    rep["resume_s"] = s
+    rep["resume_losses"] = [_i_losses(o) for o in outs]
+    resumed = [("Resumed from" in o) for o in outs]
+    rep["resumed_on_both"] = all(resumed)
+    if rc != 0 or not all(resumed) or \
+            rep["resume_losses"][0] != rep["resume_losses"][1] or \
+            len(rep["resume_losses"][0]) != 1:
+        failures.append(f"I3: resume exited {rc}, {rep['resume_losses']}, "
+                        f"{resumed}: {tail}"
+                        + _i_stderr(os.path.join(tmp, "l2")))
+        return rep
+    after, meta2 = ckpt_utils.load_checkpoint_orbax(
+        os.path.join(runs, "i3r"))
+    rep["resume_meta"] = meta2
+    moved = sum(not np.array_equal(a, b) for a, b in zip(
+        tree_leaves(after["adapters"]), tree_leaves(saved["adapters"])))
+    rep["resume_adapter_leaves_moved"] = moved
+    if meta2.get("step") != 3 or not moved:
+        failures.append(f"I3: resumed meta {meta2}, moved {moved}")
+    return rep
+
+
+def _phase_i_launches(rep: dict, name: str):
+    """A kernel's launches on each rank of phase I's groups: K1 and K6 in
+    I1's tp-2 bf16 serving, K2 in I2's dp-2 step; None for the others."""
+    key = {"flash_attention": ("i1", "k1_launches"),
+           "prefix_decode_attention": ("i1", "k6_launches"),
+           "flash_mma": ("i2", "k2_launches")}.get(name)
+    if key is None:
+        return None
+    sub = rep.get(key[0], {})
+    ranks = sub.get("tp2") if key[0] == "i1" else \
+        sub.get("dp2_tp1", {}).get("ranks")
+    return [r[key[1]] for r in ranks] if ranks else None
+
+
+def phase_i(torch, dev):
+    """The distributed layer (slice 14) after every earlier model is freed;
+    ranks share cuda:0 over gloo (NCCL for the world of 1). Returns
+    (report, failures)."""
+    failures = []
+    rep = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fn in (("i1", lambda: phase_i1(torch, dev, tmp, failures)),
+                         ("i2", lambda: phase_i2(torch, dev, tmp, failures)),
+                         ("i3", lambda: phase_i3(torch, tmp, failures))):
+            t1 = time.perf_counter()
+            try:
+                rep[name] = fn()
+            except Exception as e:  # a failed or hung group fails the phase
+                failures.append(f"phase I {name}: {type(e).__name__}: "
+                                f"{str(e)[-4000:]}")
+                rep[name] = {"error": type(e).__name__}
+            rep[name + "_s"] = time.perf_counter() - t1
+            torch.cuda.empty_cache()
+            log(f"phase I {name}:", json.dumps(rep[name], default=str))
+    rep["device"] = smi_line()
+    rep["phase_s"] = time.perf_counter() - t0
+    return rep, failures
+
+
 # one run of a tree's own main path, in a fresh process (argv[1]: its
 # root, argv[2]: this script, whose tree's scripts/_timing.py profiles both
 # trees), then ten timed full-width UNet calls and one profiled one
@@ -3698,6 +4529,10 @@ def main() -> int:
     h_report, h_failures = phase_h(torch, dev)
     failures += h_failures
     log("training phase H:", json.dumps(h_report))
+    torch.cuda.empty_cache()
+    i_report, i_failures = phase_i(torch, dev)
+    failures += i_failures
+    log("distributed phase I:", json.dumps(i_report, default=str))
     # launches on each kernel's own paths: slice 1's main path for flash
     # and GEGLU, serving phases A and B for the W8 and decode kernels, the
     # fused-LN generation (D1) for K7-K9, the q8 UNet call (D2) for K10 and
@@ -3716,6 +4551,10 @@ def main() -> int:
                                + serve_report["B"]["launches"][name])
         else:
             row["launches"] = path_launches[name]
+        # each rank's launches in phase I (I1 at tp 2: K1, K6; I2: K2)
+        per_rank = _phase_i_launches(i_report, name)
+        if per_rank is not None:
+            row["phase_i_launches_per_rank"] = per_rank
     log(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s")
     if failures:
         for f in failures:

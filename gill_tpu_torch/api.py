@@ -596,7 +596,7 @@ def load_gill(model_dir: str, *, device="cuda", load_ret_embs: bool = True,
               num_gen_images: int = 1, dtype=torch.bfloat16, seed: int = 0,
               lm_weight_precision: str = "bf16",
               kv_cache_precision: str = "bf16",
-              sd_precision: str = "bf16") -> GILL:
+              sd_precision: str = "bf16", mesh=None) -> GILL:
     """Builds an inference GILL from a reference-format checkpoint
     directory: model_args.json, the tokenizer, the adapters
     (`pretrained_ckpt.pth.tar`, else the npz `ckpt/state.npz`, else random),
@@ -616,7 +616,13 @@ def load_gill(model_dir: str, *, device="cuda", load_ret_embs: bool = True,
     names another (the CPU tests pass "cpu"); lm_weight_precision /
     kv_cache_precision as in GILL. sd_precision: "bf16" or "int8", the
     opt-in W8A8 SD UNet (unet.quantize_params), of loaded or random
-    weights."""
+    weights.
+
+    mesh: a `parallel.Mesh`, handed to the retrieval index (as gill_tpu's
+    load_gill does), which then keeps this data rank's rows and merges
+    the ranks' top-k. The SPMD contract: every rank of the mesh calls
+    load_gill and then every API method with the same inputs, in the same
+    order (the index's top-k is a collective)."""
     from gill_tpu_torch.models.sd.pipeline import StableDiffusionPipeline
     from gill_tpu_torch.retrieval import RetrievalIndex, load_embeddings
     from gill_tpu_torch.tokenizer import (GPT2BPETokenizer, load_tokenizer,
@@ -665,7 +671,8 @@ def load_gill(model_dir: str, *, device="cuda", load_ret_embs: bool = True,
         paths, mat = load_embeddings(model_dir)
         if paths is not None:
             scale = math.exp(float(adapters["logit_scale"]))
-            index = RetrievalIndex(paths, mat, scale, device=device)
+            index = RetrievalIndex(paths, mat, scale, device=device,
+                                   mesh=mesh)
         else:
             print(f"cc3m*.npy not found in {model_dir}; running without "
                   f"retrieval.")

@@ -11,8 +11,21 @@ image grids, and `ckpt/` + `ckpt_best/` checkpoints. It differs from
 main.py in these ways:
   * `--device` (default cuda) replaces `--platform`; with no card and no
     `--device cpu` it raises;
-  * `--dp-size` / `--tp-size` above 1, `--multihost` and
-    `--ckpt-backend orbax` raise (a distributed port is ROADMAP Q1.8);
+  * several ranks are several processes, started by torch.distributed.run
+    (one per card; ranks that share a card, or the CPU, take gloo):
+
+        python -m torch.distributed.run --nproc-per-node 2 \
+            -m gill_tpu_torch.main ... --dp-size 2 --ckpt-backend orbax
+
+    The world size must be dp x tp after DP shrinks to divide the batch
+    (main.py's rule); a mismatch raises. `--multihost` asks for the
+    launcher's environment and raises without it. Each rank loads
+    batch_size / dp rows (its data coordinate's shard); rank 0 makes the
+    log directory and broadcasts its path, and alone writes TensorBoard,
+    args.json and the npz checkpoints; `--ckpt-backend orbax` writes
+    `orbax_<step>/` collectively with torch.distributed.checkpoint (not
+    orbax's format). With concat_captions a step packs pairs of a rank's
+    own rows, so it needs an even count of rows a rank;
   * `--profile-steps N` writes a torch.profiler trace of N steps to
     `<log dir>/trace/`;
   * fp32 products stay fp32 (TF32 off).
@@ -29,9 +42,6 @@ import sys
 import time
 
 import numpy as np
-
-NOT_PORTED = "not ported yet (ROADMAP Q1.8)"
-
 
 def parse_args(argv):
     p = argparse.ArgumentParser(description="GILL training (PyTorch)")
@@ -96,9 +106,9 @@ def parse_args(argv):
     p.add_argument("-e", "--evaluate", action="store_true")
     p.add_argument("--seed", default=None, type=int)
     p.add_argument("--dp-size", default=-1, type=int,
-                   help="data-parallel size; above 1 is " + NOT_PORTED)
+                   help="data-parallel size (-1: world size / tp)")
     p.add_argument("--tp-size", default=1, type=int,
-                   help="tensor-parallel size; above 1 is " + NOT_PORTED)
+                   help="tensor-parallel size of the frozen LM")
     p.add_argument("--remat", action="store_true",
                    help="recompute each frozen-LM layer in the backward "
                         "instead of keeping its activations")
@@ -114,9 +124,10 @@ def parse_args(argv):
                    help="write a torch.profiler trace of N steps, from the "
                         "run's second step on")
     p.add_argument("--multihost", action="store_true",
-                   help=NOT_PORTED)
+                   help="require torch.distributed.run's environment")
     p.add_argument("--ckpt-backend", default="npz", choices=("npz", "orbax"),
-                   help="npz (orbax is " + NOT_PORTED + ")")
+                   help="npz (rank 0) or the collective orbax_<step>/ "
+                        "checkpoint (torch.distributed.checkpoint)")
     return p.parse_args(argv)
 
 
@@ -150,7 +161,7 @@ def build_tokenizer(args):
 
 def make_log_dir(args) -> str:
     """A fresh `<log_base_dir>/<exp_name>[_i]` (makedirs is the claim;
-    reference main.py:176-188)."""
+    reference main.py:176-188); rank 0 calls it."""
     log_dir = os.path.join(args.log_base_dir, args.exp_name)
     i = 1
     while True:
@@ -187,23 +198,38 @@ def _write_grids(writer, tokenizer, batch, viz, step: int):
     writer.add_image("train/i2t_ret", grid.transpose(2, 0, 1), step)
 
 
+def mesh_shape(batch_size: int, dp_size: int, tp_size: int,
+               world: int) -> tuple:
+    """(dp, tp) for `world` ranks: dp = dp_size, or world / tp when -1,
+    shrunk until it divides the batch (main.py:273-281); the world must
+    then be dp x tp."""
+    tp = max(1, tp_size)
+    if tp > world:
+        raise SystemExit(f"--tp-size {tp} exceeds the {world} rank(s)")
+    dp = dp_size if dp_size > 0 else world // tp
+    while dp > 1 and (batch_size % dp != 0 or dp * tp > world):
+        dp -= 1
+    if dp * tp != world:
+        raise SystemExit(f"{world} rank(s) for a ({dp}, {tp}) mesh: start "
+                         f"dp x tp = {dp * tp} ranks")
+    return dp, tp
+
+
 def main(argv) -> str:
     args = parse_args(argv)
-    if args.dp_size > 1 or args.tp_size > 1:
-        raise NotImplementedError(f"--dp-size / --tp-size above 1: "
-                                  f"{NOT_PORTED}")
-    if args.multihost:
-        raise NotImplementedError(f"--multihost: {NOT_PORTED}")
-    if args.ckpt_backend == "orbax":
-        raise NotImplementedError(f"--ckpt-backend orbax: {NOT_PORTED}")
 
     import torch
+    import torch.distributed as dist
 
     from gill_tpu_torch.config import GILLConfig, TrainConfig
     from gill_tpu_torch.data.dataset import DataLoader, get_dataset
     from gill_tpu_torch.models import opt as opt_mod
     from gill_tpu_torch.models.gill import GILLCore
     from gill_tpu_torch.nn.core import Init, tree_leaves, tree_map
+    from gill_tpu_torch.parallel import create_mesh, init_distributed
+    from gill_tpu_torch.parallel.collectives import broadcast_str
+    from gill_tpu_torch.parallel.mesh import launched
+    from gill_tpu_torch.parallel.partition import replicated, shard_params
     from gill_tpu_torch.train import trainer as trainer_mod
     from gill_tpu_torch.train import validate as validate_mod
     from gill_tpu_torch.utils import ckpt as ckpt_utils
@@ -211,18 +237,32 @@ def main(argv) -> str:
     from gill_tpu_torch.utils.tb import SummaryWriter
     from gill_tpu_torch.weights import loader as wloader
 
+    if args.multihost and not (launched() or dist.is_initialized()):
+        raise SystemExit("--multihost needs torch.distributed.run's "
+                         "environment (RANK, WORLD_SIZE, ...)")
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
                            "to train on the CPU")
+    dev = init_distributed(dev)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log_dir = make_log_dir(args)
-    with open(os.path.join(log_dir, "args.json"), "w") as f:
-        json.dump(vars(args), f, indent=4)
-    dump_git_status(os.path.join(log_dir, "git_info.txt"))
-    print(f"Logging to {log_dir}.", flush=True)
+    dp, tp = mesh_shape(args.batch_size, args.dp_size, args.tp_size, world)
+
+    # rank 0 claims the log directory and broadcasts its path (the orbax
+    # backend saves collectively, so every rank needs it; main.py:175-201)
+    log_dir = make_log_dir(args) if rank0 else None
+    log_dir = broadcast_str(log_dir)
+    if rank0:
+        with open(os.path.join(log_dir, "args.json"), "w") as f:
+            json.dump(vars(args), f, indent=4)
+        dump_git_status(os.path.join(log_dir, "git_info.txt"))
+        print(f"Logging to {log_dir}.", flush=True)
+    mesh = create_mesh(dp, tp)
+    print(f"Mesh: {mesh}", flush=True)
     if args.seed is not None:
         np.random.seed(args.seed)
         torch.manual_seed(args.seed)
@@ -242,7 +282,10 @@ def main(argv) -> str:
     cfg.to_json(os.path.join(log_dir, "model_args.json"))
     core = GILLCore.build(cfg, vocab_len=len(tokenizer), img_start=img_ids[0],
                           pad_token_id=tokenizer.pad_token_id,
-                          bos_token_id=tokenizer.bos_token_id)
+                          bos_token_id=tokenizer.bos_token_id, mesh=mesh)
+    if args.frozen_lm_precision == "w8" and tp > 1:
+        raise SystemExit("--frozen-lm-precision w8 is a single-chip/DP "
+                         "memory lever; use bf16 with --tp-size>1")
 
     tc = TrainConfig(
         epochs=args.epochs, steps_per_epoch=args.steps_per_epoch,
@@ -279,8 +322,13 @@ def main(argv) -> str:
             lm = tree_map(lambda x: x.to(lm_dtype), lm)
         frozen = {"lm": lm, "vision": vision}
         del lm, vision
+        if tp > 1:
+            # each rank keeps its shard of the LM's matrices
+            frozen = shard_params(frozen, mesh)
         g = torch.Generator(dev).manual_seed(seed)
-        adapters = core.init_adapters(Init(g, dev, torch.float32))
+        # every rank draws the same adapters; `replicated` checks it
+        adapters = replicated(core.init_adapters(Init(g, dev, torch.float32)),
+                              mesh)
 
     def count(tree):
         return sum(x.numel() for x in tree_leaves(tree) if torch.is_tensor(x))
@@ -288,14 +336,19 @@ def main(argv) -> str:
     report = (f"Trainable params: {count(adapters):,}\n"
               f"Frozen params:   {count(frozen):,}\n")
     print(report, flush=True)
-    with open(os.path.join(log_dir, "param_count.txt"), "w") as f:
-        f.write(report)
+    if rank0:
+        with open(os.path.join(log_dir, "param_count.txt"), "w") as f:
+            f.write(report)
 
     state = trainer_mod.init_state(tc, adapters)
     del adapters
     best_acc1 = -1.0
     if args.resume:
-        tree, meta = ckpt_utils.load_checkpoint(args.resume)
+        if (args.ckpt_backend == "orbax"
+                or ckpt_utils.latest_orbax_step(args.resume) is not None):
+            tree, meta = ckpt_utils.load_checkpoint_orbax(args.resume)
+        else:
+            tree, meta = ckpt_utils.load_checkpoint(args.resume)
         state = trainer_mod.state_from_tree(tree, meta["step"], dev)
         args.start_epoch = meta.get("epoch", 0)
         best_acc1 = meta.get("best_acc1", -1.0)
@@ -306,21 +359,25 @@ def main(argv) -> str:
     val_ds = get_dataset(args, "val", tokenizer, img_ids)
     print(f"Training with {len(train_ds)} examples, validating with "
           f"{len(val_ds)}.", flush=True)
-    train_loader = DataLoader(train_ds, tc.batch_size, shuffle=True,
-                              seed=seed, num_threads=args.workers)
+    # each data coordinate loads its interleaved shard of the global batch
+    # (the DistributedSampler equivalent; ranks of one model group load the
+    # same rows)
+    train_loader = DataLoader(train_ds, tc.batch_size // dp, shuffle=True,
+                              seed=seed, num_threads=args.workers,
+                              rank=mesh.dp_rank, world=dp)
     # drop_last=False: leftover val samples still count (the reference
     # uses an auxiliary loader for the sampler remainder,
     # validate.py:311-317)
-    val_loader = DataLoader(val_ds, tc.val_batch_size or tc.batch_size,
+    val_loader = DataLoader(val_ds, (tc.val_batch_size or tc.batch_size) // dp,
                             shuffle=False, num_threads=args.workers,
-                            drop_last=False)
+                            rank=mesh.dp_rank, world=dp, drop_last=False)
     prefix_ids = None
     if args.input_prompt:
         prefix_ids = torch.tensor(
             tokenizer(args.input_prompt, add_special_tokens=False).input_ids,
             dtype=torch.long, device=dev)
 
-    writer = SummaryWriter(log_dir)
+    writer = SummaryWriter(log_dir) if rank0 else None
     step_fn = trainer_mod.make_train_step(core, tc)
 
     def run_validate(epoch):
@@ -372,8 +429,10 @@ def main(argv) -> str:
                     it = iter(train_loader)
                     batch = next(it)
                 data_time.update(time.time() - end)
+                # the same draw on every rank; pairs are packed within a
+                # rank's rows
                 concat = bool(rng.uniform() < tc.concat_captions_prob) and \
-                    (tc.batch_size % 2 == 0)
+                    ((tc.batch_size // dp) % 2 == 0)
                 actual_step = epoch * tc.steps_per_epoch + i + 1
                 run_step = ((epoch - args.start_epoch) * tc.steps_per_epoch
                             + i + 1)
@@ -399,7 +458,9 @@ def main(argv) -> str:
                         os.path.join(log_dir, "trace", "trace.json"))
                     prof = None
                 if actual_step == 1 or (i + 1) % tc.print_freq == 0:
-                    _write_grids(writer, tokenizer, batch, viz, actual_step)
+                    if writer is not None:
+                        _write_grids(writer, tokenizer, batch, viz,
+                                     actual_step)
                     # float() waits for every step of the window, so the
                     # wall time over the steps is a true s a step
                     window = {k: float(v) / mcount for k, v in msum.items()}
@@ -409,25 +470,37 @@ def main(argv) -> str:
                     for k, m in {**meters, **acc_meters}.items():
                         m.update(window[k], tc.batch_size)
                     progress.display(i + 1)
-                    for k, v in window.items():
-                        writer.add_scalar(f"train/{k}", v, actual_step)
-                    writer.add_scalar(
-                        "metrics/examples_per_sec",
-                        tc.batch_size / max(batch_time.avg, 1e-9),
-                        actual_step)
-                    writer.add_scalar("metrics/total_secs_per_batch",
-                                      batch_time.avg, actual_step)
+                    if writer is not None:
+                        for k, v in window.items():
+                            writer.add_scalar(f"train/{k}", v, actual_step)
+                        writer.add_scalar(
+                            "metrics/examples_per_sec",
+                            tc.batch_size / max(batch_time.avg, 1e-9),
+                            actual_step)
+                        writer.add_scalar("metrics/total_secs_per_batch",
+                                          batch_time.avg, actual_step)
                 end = time.time()
 
             acc1 = run_validate(epoch)
             is_best = acc1 > best_acc1
             best_acc1 = max(acc1, best_acc1)
-            ckpt_utils.save_checkpoint(
-                trainer_mod.state_tree(state), log_dir, step=state.step,
-                is_best=is_best,
-                meta={"epoch": epoch + 1, "best_acc1": float(best_acc1)})
+            meta = {"epoch": epoch + 1, "best_acc1": float(best_acc1)}
+            if args.ckpt_backend == "orbax":
+                # collective: every rank calls it
+                ckpt_utils.save_checkpoint_orbax(
+                    trainer_mod.state_tree(state), log_dir, step=state.step,
+                    meta=meta)
+                if is_best and rank0:
+                    with open(os.path.join(log_dir, "orbax_best.json"),
+                              "w") as f:
+                        json.dump({"step": int(state.step), **meta}, f)
+            elif rank0:
+                ckpt_utils.save_checkpoint(
+                    trainer_mod.state_tree(state), log_dir, step=state.step,
+                    is_best=is_best, meta=meta)
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
     return log_dir
 
 

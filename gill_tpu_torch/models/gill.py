@@ -14,6 +14,13 @@ gather. In a training forward the LM's inputs need a gradient, so the
 dispatcher and the linear layers take their plain paths there (no kernel
 has a backward); the frozen CLIP tower needs none and runs its kernels.
 
+A mesh (`GILLCore.mesh`, a `parallel.Mesh`) runs both over processes, as
+gill_tpu's GSPMD runs them over devices: the LM's layers are tensor
+parallel over "model" (models/opt.py; `params["lm"]` then holds this
+rank's shards, `parallel.shard_params`), and under "data" each rank feeds
+its own rows of the global batch, `ce_loss` being this rank's share of
+the global batch's mean (train/trainer.py sums the shares).
+
 `generate` matches gill_tpu's tokens and hidden states, not its XLA
 mechanism: the prompt is prefilled at its true length (gill_tpu pads it
 to a multiple of 64 so one compiled program serves a bucket; the padded
@@ -36,6 +43,7 @@ from gill_tpu_torch.models import mapper as mapper_mod
 from gill_tpu_torch.models import opt as opt_mod
 from gill_tpu_torch.nn import core as nn
 from gill_tpu_torch.ops.sampling import sample
+from gill_tpu_torch.parallel.partition import KV8_REFUSAL, local_heads
 
 IGNORE = -100
 
@@ -52,13 +60,17 @@ class GILLCore:
     img_start: int               # id of [IMG0] (contiguous run of num_tokens)
     pad_token_id: int = 1
     bos_token_id: int = 2
+    mesh: Optional[object] = None   # parallel.Mesh: TP over "model", DP
+                                    # over "data"
 
     @classmethod
     def build(cls, cfg: GILLConfig, vocab_len: int, img_start: int,
-              pad_token_id: int = 1, bos_token_id: int = 2) -> "GILLCore":
+              pad_token_id: int = 1, bos_token_id: int = 2,
+              mesh=None) -> "GILLCore":
         return cls(cfg=cfg, opt_cfg=cfg.opt, vis_cfg=cfg.vision,
                    vocab_len=vocab_len, img_start=img_start,
-                   pad_token_id=pad_token_id, bos_token_id=bos_token_id)
+                   pad_token_id=pad_token_id, bos_token_id=bos_token_id,
+                   mesh=mesh)
 
     # -- mapper configs ------------------------------------------------------
 
@@ -322,12 +334,13 @@ class GILLCore:
         need_hidden = any(e not in (-1, n_layers) for _, e, _ in specs)
         out = opt_mod.forward(params["lm"], self.opt_cfg, embs, remat=remat,
                               lm_head=self.lm_head_table(params),
-                              collect_hidden=need_hidden)
+                              collect_hidden=need_hidden, mesh=self.mesh)
         logits, hidden = out["logits"], out["last_hidden"]
         result = {"logits": logits, "full_labels": labels,
                   "visual_embs": visual_embs, "visual_embs_norm": visual_norm,
                   "input_embs_norm": input_norm,
-                  "ce_loss": opt_mod.loss_fn(logits, labels)}
+                  "ce_loss": opt_mod.loss_fn(logits, labels,
+                                             mesh=self.mesh)}
         if mode == "captioning":
             return result
 
@@ -404,11 +417,16 @@ class GILLCore:
         e0 = cfg.text_emb_layers[0]
         final_tap = e0 in (-1, self.opt_cfg.num_layers)
 
+        if kv_int8 and self.mesh is not None and self.mesh.tp > 1:
+            raise ValueError(KV8_REFUSAL)
         lm_head = self.lm_head_table(params).to(input_embs.dtype)
-        cache = opt_mod.init_cache(self.opt_cfg, b, t_in + steps, device=dev,
-                                   dtype=input_embs.dtype, kv_int8=kv_int8)
+        cache = opt_mod.init_cache(
+            self.opt_cfg, b, t_in + steps, device=dev, dtype=input_embs.dtype,
+            kv_int8=kv_int8,
+            heads=local_heads(params["lm"], self.opt_cfg.head_dim))
         pre = opt_mod.forward(params["lm"], self.opt_cfg, input_embs,
-                              cache=cache, cache_pos=0, skip_logits=True)
+                              cache=cache, cache_pos=0, skip_logits=True,
+                              mesh=self.mesh)
         logits = pre["last_hidden"][:, t_in - 1].float() @ lm_head.float().t()
 
         img0 = self.img_start
@@ -442,7 +460,8 @@ class GILLCore:
             emb = self.embed_tokens(params, token[:, None]).to(input_embs.dtype)
             out = opt_mod.forward(params["lm"], self.opt_cfg, emb, cache=cache,
                                   cache_pos=t_in + step, lm_head=lm_head,
-                                  collect_hidden=not final_tap)
+                                  collect_hidden=not final_tap,
+                                  mesh=self.mesh)
             tap = out["last_hidden"] if final_tap else out["hidden_states"][e0]
             tokens.append(token)
             hidden.append(tap[:, 0])

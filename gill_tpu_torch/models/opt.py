@@ -23,6 +23,17 @@ An int8 cache ({"k", "v"} int8 plus per-token-per-head fp32 scales "ks",
 "vs") takes the prefill and single-token decode paths.
 Layers run as a Python loop over views of the stacked (L, ...) weights; a
 W8 weight's layer view is a view too, so nothing is copied per layer.
+
+Tensor parallelism (`mesh=`, gill_tpu's GSPMD over its "model" axis):
+with the layer matrices of `parallel.partition.shard_params`, each rank
+runs num_heads / tp heads: q/k/v and fc1 are column-parallel, o and fc2
+row-parallel, with one reduce over "model" per attention block and one
+per MLP block. A row-parallel product's bias is added once, after the
+reduce. The head count and widths come from the weights' shapes, the
+cache holds the rank's heads (`init_cache(heads=)`), and everything
+outside `layers` is replicated. Under grad the layer's input enters the
+model-parallel region through `copy_to_model`, so the activation
+gradients that leave it are whole on every rank.
 """
 
 from __future__ import annotations
@@ -34,6 +45,10 @@ from gill_tpu_torch.config import OPTConfig
 from gill_tpu_torch.nn import core as nn
 from gill_tpu_torch.ops.attention import dot_product_attention, needs_grad
 from gill_tpu_torch.ops.w8_matmul import row_windows
+from gill_tpu_torch.parallel.collectives import (copy_to_model, global_count,
+                                                 model_group,
+                                                 reduce_from_model)
+from gill_tpu_torch.parallel.partition import W8_REFUSAL
 
 # On the card cuBLAS picks a plain (bf16 / fp32) weight's algorithm by the
 # product's row count: at OPT-6.7B's fc2 (K 16384) it sums K in another
@@ -174,11 +189,14 @@ def embed_tokens(params, ids):
 
 
 def init_cache(cfg: OPTConfig, batch: int, max_seq: int, *, device,
-               dtype=torch.bfloat16, kv_int8: bool = False):
+               dtype=torch.bfloat16, kv_int8: bool = False,
+               heads: int = None):
     """Preallocated (L, B, S, H, Dh) cache. kv_int8: int8 values with
     per-token-per-head fp32 scales "ks"/"vs" (L, B, S, H) (gill_tpu
-    `init_cache(kv_int8=True)`); `dtype` is then unused."""
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_heads, cfg.head_dim)
+    `init_cache(kv_int8=True)`); `dtype` is then unused. heads: a tensor
+    parallel rank's heads (the pool sharded by heads); default all."""
+    shape = (cfg.num_layers, batch, max_seq, heads or cfg.num_heads,
+             cfg.head_dim)
     if kv_int8:
         return {"k": torch.zeros(shape, device=device, dtype=torch.int8),
                 "v": torch.zeros(shape, device=device, dtype=torch.int8),
@@ -266,19 +284,32 @@ def _linear(p, x):
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 
+def _row_parallel(p, x, mesh):
+    """A row-parallel product: x @ w summed over "model", then the bias,
+    once. Without model ranks to reduce over, `_linear`."""
+    if model_group(mesh) is None:
+        return _linear(p, x)
+    y = reduce_from_model(_linear({"w": p["w"]}, x), mesh)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
 def _layer(cfg: OPTConfig, lp, h, *, cache_kv=None, cache_pos=None,
-           per_row=None):
+           per_row=None, mesh=None):
     """One decoder layer; `per_row` is `_per_row_decode(cache_pos, S)` when
-    cache_pos is a (B,) tensor."""
-    b, t, d = h.shape
-    nh, hd = cfg.num_heads, cfg.head_dim
+    cache_pos is a (B,) tensor. Under a mesh the rank's heads only (their
+    count from q's width)."""
+    b, t, _ = h.shape
+    hd = cfg.head_dim
     pre_ln = cfg.do_layer_norm_before
 
     resid = h
     x = nn.layer_norm(lp["attn_ln"], h, cfg.layer_norm_eps) if pre_ln else h
-    q = _linear(lp["attn"]["q"], x).reshape(b, t, nh, hd)
-    k = _linear(lp["attn"]["k"], x).reshape(b, t, nh, hd)
-    v = _linear(lp["attn"]["v"], x).reshape(b, t, nh, hd)
+    x = copy_to_model(x, mesh)
+    q = _linear(lp["attn"]["q"], x).reshape(b, t, -1, hd)
+    k = _linear(lp["attn"]["k"], x).reshape(b, t, -1, hd)
+    v = _linear(lp["attn"]["v"], x).reshape(b, t, -1, hd)
 
     if cache_kv is None:
         attn = dot_product_attention(q, k, v, causal=True)
@@ -311,12 +342,14 @@ def _layer(cfg: OPTConfig, lp, h, *, cache_kv=None, cache_pos=None,
             attn = dot_product_attention(q, ck, cv, causal=True,
                                          kv_offset=cache_pos)
 
-    h = resid + _linear(lp["attn"]["o"], attn.reshape(b, t, d))
+    h = resid + _row_parallel(lp["attn"]["o"], attn.reshape(b, t, -1), mesh)
     if not pre_ln:
         h = nn.layer_norm(lp["attn_ln"], h, cfg.layer_norm_eps)
     resid = h
     x = nn.layer_norm(lp["mlp_ln"], h, cfg.layer_norm_eps) if pre_ln else h
-    h = resid + _linear(lp["fc2"], torch.relu(_linear(lp["fc1"], x)))
+    x = copy_to_model(x, mesh)
+    h = resid + _row_parallel(lp["fc2"], torch.relu(_linear(lp["fc1"], x)),
+                              mesh)
     if not pre_ln:
         h = nn.layer_norm(lp["mlp_ln"], h, cfg.layer_norm_eps)
     return h
@@ -324,8 +357,13 @@ def _layer(cfg: OPTConfig, lp, h, *, cache_kv=None, cache_pos=None,
 
 def forward(params, cfg: OPTConfig, inputs_embeds, *,
             collect_hidden: bool = False, cache=None, cache_pos=None,
-            lm_head=None, skip_logits: bool = False, remat: bool = False):
+            lm_head=None, skip_logits: bool = False, remat: bool = False,
+            mesh=None):
     """Decoder forward from input embeddings (B, T, word_embed_proj_dim).
+
+    mesh: a `parallel.Mesh` whose "model" group the layers reduce over;
+    `params` then hold this rank's shards (`shard_params`). W8 leaves
+    raise under a mesh with tp > 1, as in gill_tpu.
 
     remat: with no cache and grad enabled, each layer runs under
     `torch.utils.checkpoint` (non-reentrant): its activations are
@@ -355,6 +393,8 @@ def forward(params, cfg: OPTConfig, inputs_embeds, *,
     hs = [h] if collect_hidden else None
 
     layers = params["layers"]
+    if mesh is not None and mesh.tp > 1 and "w8" in layers["attn"]["q"]:
+        raise ValueError(W8_REFUSAL)
     ckeys = None if cache is None else cache_keys(cache)
     per_row = (_per_row_decode(cache_pos, cache["k"].shape[2])
                if cache is not None and torch.is_tensor(cache_pos) else None)
@@ -363,10 +403,11 @@ def forward(params, cfg: OPTConfig, inputs_embeds, *,
         kv = None if cache is None else tuple(cache[c][i] for c in ckeys)
         lp = nn.layer_view(layers, i)
         if remat:
-            h = checkpoint(_layer, cfg, lp, h, use_reentrant=False)
+            h = checkpoint(_layer, cfg, lp, h, use_reentrant=False,
+                           mesh=mesh)
         else:
             h = _layer(cfg, lp, h, cache_kv=kv, cache_pos=cache_pos,
-                       per_row=per_row)
+                       per_row=per_row, mesh=mesh)
         if collect_hidden:
             hs.append(h)
 
@@ -388,10 +429,12 @@ def forward(params, cfg: OPTConfig, inputs_embeds, *,
     return out
 
 
-def loss_fn(logits, labels, ignore_index: int = -100):
+def loss_fn(logits, labels, ignore_index: int = -100, mesh=None):
     """Shifted next-token cross-entropy, targets equal to `ignore_index`
     masked, mean over the valid ones (HF CausalLMOutput.loss, reference
-    main.py:508; gill_tpu opt.loss_fn)."""
+    main.py:508; gill_tpu opt.loss_fn). Under a mesh with data ranks, this
+    rank's share of the global batch's mean: its own sum over the count of
+    valid targets on every data rank (the shares sum to the mean)."""
     logits = logits[:, :-1, :]
     targets = labels[:, 1:].long()
     valid = targets != ignore_index
@@ -399,4 +442,4 @@ def loss_fn(logits, labels, ignore_index: int = -100):
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum() / valid.sum().clamp_min(1)
+    return nll.sum() / global_count(valid.sum(), mesh).clamp_min(1)

@@ -30,9 +30,17 @@ per-request max_new_tokens end a request. What it keeps from gill_tpu:
     `cache[:, :, :kv_hi]` of the pool. gill_tpu slices and merges a window
     copy (`_kv_window`, XLA mechanism); a view needs neither;
   * prefix caching (register / extend / drop), int8 KV, `warmup`, `run`,
-    `run_pipelined`, `run_waves` and `stats`.
-Not ported: `mesh` (tensor-parallel serving) and `unroll_layers` (the port
-always loops over layer views). Host -> device copies go through pinned
+    `run_pipelined`, `run_waves` and `stats`;
+  * `mesh` (tensor-parallel serving): the engine keeps this rank's shard
+    of the LM's matrices (`parallel.shard_params`) and the pool sharded by
+    heads; the layers reduce over "model" (models/opt.py). The SPMD
+    contract: every rank of the model group builds the engine from the
+    same parameters and calls it with the same requests, in the same
+    order. Every host decision (wave sizes, read windows, refills, EOS
+    latches) then comes from replicated state: the token blocks are
+    argmaxes of logits every rank holds bit for bit after the reduce. W8
+    weights and an int8 pool raise under a mesh, as in gill_tpu.
+Not ported: `unroll_layers` (the port always loops over layer views). Host -> device copies go through pinned
 memory without blocking, and token blocks come back through pinned buffers
 read once their chunk's event has passed, so the pipelined scheduler never
 waits on chunks it dispatched later.
@@ -49,6 +57,8 @@ import torch
 
 from gill_tpu_torch.config import OPTConfig
 from gill_tpu_torch.models import opt as opt_mod
+from gill_tpu_torch.parallel.partition import (KV8_REFUSAL, local_heads,
+                                               shard_params)
 
 
 @dataclass
@@ -151,13 +161,23 @@ class DecodeEngine:
     for W8A16 serving); the engine runs on the params' device. slots: the
     decode batch width. max_seq: KV rows per slot (prompt + generation must
     fit). chunk: decode steps per host round trip. kv_dtype: the pool's
-    dtype; torch.int8 selects the int8 cache with per-token scales."""
+    dtype; torch.int8 selects the int8 cache with per-token scales. mesh:
+    a `parallel.Mesh` to serve tensor-parallel over its "model" group
+    (`params` the full tree; the engine keeps this rank's shard). device:
+    with `mesh`, where this rank's shard goes (default the params'
+    device), so a tree on the host puts only the shard on the card."""
 
     def __init__(self, params, cfg: OPTConfig, *, slots: int = 16,
                  max_seq: int = 512, chunk: int = 32,
                  prefill_buckets=(64, 128, 256, 512),
                  eos_id: Optional[int] = None, pad_id: int = 1,
-                 kv_dtype=torch.bfloat16, kv_read_buckets="auto"):
+                 kv_dtype=torch.bfloat16, kv_read_buckets="auto",
+                 mesh=None, device=None):
+        self.mesh = mesh
+        if mesh is not None:
+            if kv_dtype == torch.int8:
+                raise ValueError(KV8_REFUSAL)
+            params = shard_params(params, mesh, device)
         self.params = params
         self.cfg = cfg
         self.device = params["embed_tokens"]["weight"].device
@@ -170,9 +190,10 @@ class DecodeEngine:
         self.eos_id = eos_id
         self.pad_id = pad_id
         self._kv8 = kv_dtype == torch.int8
+        self.heads = local_heads(params, cfg.head_dim)
         self.cache = opt_mod.init_cache(cfg, slots, max_seq,
                                         device=self.device, dtype=kv_dtype,
-                                        kv_int8=self._kv8)
+                                        kv_int8=self._kv8, heads=self.heads)
         # the tied head in fp32, made once: logits are fp32 products of the
         # activation-dtype values with fp32 sums (gill_tpu's dot_general
         # with preferred_element_type=float32) without widening the table
@@ -233,7 +254,7 @@ class DecodeEngine:
     def _small_cache(self, rows: int, length: int):
         return opt_mod.init_cache(self.cfg, rows, length, device=self.device,
                                   dtype=self.cache["k"].dtype,
-                                  kv_int8=self._kv8)
+                                  kv_int8=self._kv8, heads=self.heads)
 
     def _prefill(self, toks, lens, slot_ids, limits, pfx=None):
         """Batched prefill of R prompts (R, P) into the slots `slot_ids`
@@ -249,7 +270,8 @@ class DecodeEngine:
             for key in ("k", "v"):
                 small[key][:, :, :n_pfx] = pfx[key]
         out = opt_mod.forward(self.params, cfg, emb, cache=small,
-                              cache_pos=n_pfx, skip_logits=True)
+                              cache_pos=n_pfx, skip_logits=True,
+                              mesh=self.mesh)
         lens_d = to_device(lens, dev).long()
         h_last = out["last_hidden"][torch.arange(r, device=dev), lens_d - 1]
         first = head_rows(h_last, self._head, self.slots).argmax(-1).to(
@@ -280,7 +302,8 @@ class DecodeEngine:
             act = active & (pos < limit)
             emb = opt_mod.embed_tokens(self.params, tok[:, None].long())
             out = opt_mod.forward(self.params, cfg, emb, cache=win,
-                                  cache_pos=pos, lm_head=self._head)
+                                  cache_pos=pos, lm_head=self._head,
+                                  mesh=self.mesh)
             nxt = out["logits"][:, -1].argmax(-1).to(torch.int32)
             nxt = torch.where(act, nxt, torch.full_like(nxt, self.pad_id))
             if self.eos_id is not None:
@@ -331,7 +354,7 @@ class DecodeEngine:
             for key in ("k", "v"):
                 small[key][:, :, :n] = parent[key]
         opt_mod.forward(self.params, self.cfg, emb, cache=small, cache_pos=n,
-                        skip_logits=True)
+                        skip_logits=True, mesh=self.mesh)
         return small
 
     @torch.no_grad()

@@ -26,8 +26,14 @@ same slot pool:
     position) (ops/sampling.py `uniform_for`), so a request's stream does
     not depend on its slot or chunk. gill_tpu folds the position into a
     threefry key, whose bits this does not reproduce.
-The KV pool is bf16 or fp32 (gill_tpu refuses int8 here too); `mesh` and
-`unroll_layers` are not ported.
+The KV pool is bf16 or fp32 (gill_tpu refuses int8 here too). `mesh`:
+tensor-parallel serving as serve/engine.py's (this rank's shard of the
+LM's matrices, the pool sharded by heads; the [IMG]-merged embedding
+table, the tap ring and the scheduler state replicated), with the same
+SPMD contract: every rank of the model group builds the engine from the
+same parameters and submits the same requests in the same order; sampled
+draws come from (request seed, position), the same on every rank.
+`unroll_layers` is not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import torch
 
 from gill_tpu_torch.models import opt as opt_mod
 from gill_tpu_torch.ops.sampling import sample_per_row, uniform_for
+from gill_tpu_torch.parallel.partition import local_heads, shard_params
 from gill_tpu_torch.serve.engine import (HostCopy, _bucket, head_rows,
                                          kv_read_ladder, pool_window_hi,
                                          to_device)
@@ -85,12 +92,17 @@ class GillDecodeEngine:
     """Slot-pooled continuous batching over a GILLCore parameter tree.
 
     core: models.gill.GILLCore; params: {"lm", "vision", "adapters"}. The
-    engine runs on the LM params' device with a `kv_dtype` pool."""
+    engine runs on the LM params' device with a `kv_dtype` pool. mesh: a
+    `parallel.Mesh` to serve tensor-parallel over its "model" group
+    (`params` full; the engine keeps this rank's shard). device: with
+    `mesh`, where this rank's shard goes (default the LM params' device),
+    so a tree on the host puts only the shard on the card."""
 
     def __init__(self, core, params, *, slots: int = 8, max_seq: int = 512,
                  chunk: int = 16, prefill_buckets=(64, 128, 256),
                  kv_dtype=torch.bfloat16, sampling: bool = False,
-                 max_img_runs: int = 1, kv_read_buckets="auto"):
+                 max_img_runs: int = 1, kv_read_buckets="auto", mesh=None,
+                 device=None):
         if kv_dtype == torch.int8:
             raise ValueError("the GILL serving engine keeps a bf16 or fp32 "
                              "KV pool (gill_tpu refuses int8 here too)")
@@ -119,12 +131,17 @@ class GillDecodeEngine:
         # the embedding lookup AND the tied head see the learned rows
         lm = dict(params["lm"])
         lm["embed_tokens"] = {"weight": core.lm_head_table(params)}
+        self.mesh = mesh
+        if mesh is not None:
+            lm = shard_params(lm, mesh, device)
         self.params = lm
+        self.heads = local_heads(lm, self.cfg.head_dim)
         self.device = lm["embed_tokens"]["weight"].device
         self._head = lm["embed_tokens"]["weight"].float()   # see engine.py
         self.emb_dim = int(self._head.shape[1])
         self.cache = opt_mod.init_cache(self.cfg, slots, max_seq,
-                                        device=self.device, dtype=kv_dtype)
+                                        device=self.device, dtype=kv_dtype,
+                                        heads=self.heads)
         self._dstate = None
         self._dtap = None
         self._state: List[Optional[_GSlot]] = [None] * slots
@@ -194,12 +211,14 @@ class GillDecodeEngine:
         r, p, _ = embs.shape
         n_pfx = 0 if pfx is None else pfx["n"]
         small = opt_mod.init_cache(cfg, r, n_pfx + p, device=dev,
-                                   dtype=self.cache["k"].dtype)
+                                   dtype=self.cache["k"].dtype,
+                                   heads=self.heads)
         if pfx is not None:
             for key in ("k", "v"):
                 small[key][:, :, :n_pfx] = pfx[key]
         out = opt_mod.forward(self.params, cfg, embs, cache=small,
-                              cache_pos=n_pfx, skip_logits=True)
+                              cache_pos=n_pfx, skip_logits=True,
+                              mesh=self.mesh)
         lens_d = to_device(lens, dev).long()
         h_last = out["last_hidden"][torch.arange(r, device=dev), lens_d - 1]
         logits0 = head_rows(h_last, self._head, self.slots)
@@ -262,7 +281,8 @@ class GillDecodeEngine:
             emb = self.params["embed_tokens"]["weight"][tok[:, None].long()]
             out = opt_mod.forward(self.params, cfg, emb, cache=win,
                                   cache_pos=pos, lm_head=self._head,
-                                  collect_hidden=not self.final_tap)
+                                  collect_hidden=not self.final_tap,
+                                  mesh=self.mesh)
             hidden = (out["last_hidden"] if self.final_tap
                       else out["hidden_states"][self.tap_layer])[:, 0]
             # tap capture for the fed token: a fed [IMG0] starts run k + 1
@@ -323,12 +343,14 @@ class GillDecodeEngine:
         n = 0 if parent is None else parent["n"]
         small = opt_mod.init_cache(self.cfg, 1, n + _rows(embs),
                                    device=self.device,
-                                   dtype=self.cache["k"].dtype)
+                                   dtype=self.cache["k"].dtype,
+                                   heads=self.heads)
         if parent is not None:
             for key in ("k", "v"):
                 small[key][:, :, :n] = parent[key]
         opt_mod.forward(self.params, self.cfg, self._dev_embs(embs)[None],
-                        cache=small, cache_pos=n, skip_logits=True)
+                        cache=small, cache_pos=n, skip_logits=True,
+                        mesh=self.mesh)
         return {"n": n + _rows(embs), "k": small["k"], "v": small["v"]}
 
     @torch.no_grad()

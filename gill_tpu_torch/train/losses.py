@@ -1,14 +1,18 @@
 """Loss functions and accuracy metrics (gill_tpu/train/losses.py;
 reference gill/losses.py and gill/utils.py:128-150).
 
-The contrastive loss takes the whole batch's logit matrix: the port trains
-in one process, so the reference's all_gather with the local slice
-overwritten (main.py:522-535) has nothing to gather.
+The contrastive loss takes the whole batch's logit matrix. Under data
+parallelism that is the global batch's, built from `gather_data` (whose
+backward hands each rank its own rows' gradient) where the reference
+all-gathers and overwrites its local slice (main.py:522-535); the token
+accuracies count over the global batch (`mesh=`).
 """
 
 from __future__ import annotations
 
 import torch
+
+from gill_tpu_torch.parallel.collectives import global_count
 
 
 def l2_loss(u, v):
@@ -37,17 +41,21 @@ def contrastive_acc(logits, topk=(1,)):
             .mean() for k in topk]
 
 
-def token_accuracy(logits, labels, ignore_index: int = -100, topk=(1, 5)):
+def token_accuracy(logits, labels, ignore_index: int = -100, topk=(1, 5),
+                   mesh=None):
     """Top-k next-token accuracy over the unmasked positions, in percent.
 
     logits: (B, T, V), already aligned with labels (the caller passes
     logits[:, :-1] against labels[:, 1:], reference main.py:504). The rank
     is the count of logits above the target's (one compare + sum over V,
     gill_tpu's replacement of top_k); an exact tie ranks the target
-    optimistically."""
+    optimistically. Under a mesh with data ranks the counts are the
+    global batch's."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     target = torch.gather(logits, -1, safe[..., None])          # (B, T, 1)
     rank = (logits > target).sum(dim=-1)                         # 0 = argmax
-    denom = valid.sum().clamp_min(1)
-    return [100.0 * ((rank < k) & valid).sum() / denom for k in topk]
+    counts = global_count(torch.stack(
+        [valid.sum()] + [((rank < k) & valid).sum() for k in topk]), mesh)
+    denom = counts[0].clamp_min(1)
+    return [100.0 * c / denom for c in counts[1:]]

@@ -29,6 +29,19 @@ semantics where torch.optim's defaults differ:
     mini-step gradients, the inner optimizer (and its count) advancing
     only when it is applied; the renorm runs every mini-step.
 `metrics["lr"]` is the schedule at `state.step` (every mini-step counts).
+
+Data parallelism (`core.mesh` with data ranks) keeps gill_tpu's
+global-batch semantics, not DDP's per-rank ones: each rank feeds its rows
+of one global batch; the token CEs are the global batch's valid-token sum
+over its global count (each rank's `ce_loss` is its share), the L2 and
+the norms are global means, the contrastive matrices are the global
+batch's (`gather_data`), and the accuracies count over the global batch.
+The adapters' gradients are summed over "data" (each rank's loss holds
+its shares and the whole contrastive term, whose gathered backward gives
+each rank its own rows' part), so clipping, AdamW, MultiSteps and the
+renorm then run identically on every rank. Under tensor parallelism the
+LM's forward goes through the "model" collectives (models/opt.py), so
+activation gradients reach the adapters whole.
 """
 
 from __future__ import annotations
@@ -43,6 +56,8 @@ import torch
 from gill_tpu_torch.config import TrainConfig
 from gill_tpu_torch.models.gill import GILLCore
 from gill_tpu_torch.nn.core import tree_leaves, tree_map
+from gill_tpu_torch.parallel.collectives import (data_group, gather_data,
+                                                 global_count, sum_over_data)
 from gill_tpu_torch.train import losses as L
 
 BATCH_KEYS = ("pixels", "ret_tokens", "ret_len", "gen_tokens", "gen_len",
@@ -160,8 +175,12 @@ def compute_losses(core: GILLCore, params, batch, tc: TrainConfig,
     """Runs the three modes and combines their losses; returns (loss,
     metrics), the metrics detached 0-d tensors plus "_viz" (the predicted
     caption tokens and the batch's retrieval argmaxes for the TB grids,
-    reference main.py:675-720)."""
+    reference main.py:675-720). Under data parallelism the returned loss
+    is this rank's part (see the module docstring) and the metrics are the
+    global batch's."""
     pixels = batch["pixels"]
+    mesh = core.mesh
+    dp = 1 if data_group(mesh) is None else mesh.dp
     metrics: Dict = {}
 
     cap = core.forward(params, pixels, batch["ret_tokens"], batch["ret_len"],
@@ -171,7 +190,7 @@ def compute_losses(core: GILLCore, params, batch, tc: TrainConfig,
     total = ce_cap
     with torch.no_grad():
         top1, top5 = L.token_accuracy(cap["logits"][:, :-1],
-                                      cap["full_labels"][:, 1:])
+                                      cap["full_labels"][:, 1:], mesh=mesh)
         nv = core.cfg.n_visual_tokens
         viz = {"pred_tokens": torch.argmax(
             cap["logits"][:, max(nv - 1, 0):-1], dim=-1).int()}
@@ -184,7 +203,9 @@ def compute_losses(core: GILLCore, params, batch, tc: TrainConfig,
                        mode="retrieval", concat_captions=concat_captions,
                        prefix_ids=prefix_ids, remat=tc.remat)
     ce_ret = ret["ce_loss"] * tc.ret_loss_scale * 0.5
-    logits_per_image = ret["visual_embs"] @ ret["last_embedding"].t()
+    # the global batch's matrices (reference main.py:522-535)
+    logits_per_image = (gather_data(ret["visual_embs"], mesh)
+                        @ gather_data(ret["last_embedding"], mesh).t())
     logits_per_text = logits_per_image.t()
     cont = (L.contrastive_loss(logits_per_text)
             + L.contrastive_loss(logits_per_image)) / 2.0
@@ -208,13 +229,35 @@ def compute_losses(core: GILLCore, params, batch, tc: TrainConfig,
     clip_emb = batch["clip_emb"].to(mapped.dtype)
     if mapped.shape != clip_emb.shape:
         mapped = mapped.reshape(clip_emb.shape)
-    gen_l2 = L.l2_loss(clip_emb.float(), mapped.float()).mean() \
+    gen_l2 = L.l2_loss(clip_emb.float(), mapped.float()).mean() / dp \
         * tc.gen_loss_scale
     total = total + ce_gen + gen_l2
     metrics.update(gen_ce=ce_gen, gen_l2=gen_l2, loss=total)
     metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+    if dp > 1:
+        metrics = _global_metrics(metrics, tc, dp, mesh)
     metrics["_viz"] = viz
     return total, metrics
+
+
+_SHARES = ("cap_ce", "ret_ce", "gen_ce", "gen_l2")
+_MEANS = ("vis_norm_cap", "inp_norm", "vis_norm_ret")
+
+
+def _global_metrics(metrics, tc: TrainConfig, dp: int, mesh) -> Dict:
+    """The global batch's metrics from this rank's: the loss shares summed
+    over "data" (one all-reduce), the per-rank means averaged, and the
+    total rebuilt from them in gill_tpu's order."""
+    keys = _SHARES + _MEANS
+    vals = global_count(torch.stack([metrics[k].float() for k in keys]),
+                        mesh)
+    out = dict(metrics)
+    for i, k in enumerate(keys):
+        out[k] = vals[i] / dp if k in _MEANS else vals[i]
+    out["loss"] = (out["cap_ce"] + out["ret_ce"]
+                   + tc.ret_loss_scale * out["cont_loss"] + out["gen_ce"]
+                   + out["gen_l2"])
+    return out
 
 
 def _check_frozen(frozen) -> None:
@@ -242,6 +285,7 @@ def make_train_step(core: GILLCore, tc: TrainConfig, prefix_ids=None):
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
+        grads = sum_over_data(grads, core.mesh)
         del loss
         with torch.no_grad():
             metrics["grad_norm"] = global_norm(grads)

@@ -1,12 +1,17 @@
 """Validation loop (gill_tpu/train/validate.py; reference
-gill/validate.py:18-343), in one process.
+gill/validate.py:18-343).
 
 Per batch the three modes run with the "A picture of" prefix and no
 gradient (so the kernels run); captioning also greedy-decodes captions for
 BLEU-1..4; the retrieval embeddings of the whole validation set are kept
 for its full-matrix top-1/5 in both directions (the model-selection
-metric, validate.py:343). The reference's cross-rank gathers (and
-gill_tpu's process_allgather) wait for a distributed port (ROADMAP Q1.8).
+metric, validate.py:343). Under data parallelism (`core.mesh`) each rank
+runs its loader's rows, the eval step's metrics are the global batch's
+(train/trainer.py), and the visual and text embeddings and the caption
+tokens are gathered over "data" every batch (gill_tpu's
+process_allgather; the reference's NCCL all_gathers,
+validate.py:94-155), so retrieval accuracy and BLEU cover the whole set
+on every rank.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from gill_tpu_torch.parallel.collectives import gather_rows, global_count
 from gill_tpu_torch.train.bleu import bleu_score
 from gill_tpu_torch.train.trainer import make_eval_step, put_batch as _put
 from gill_tpu_torch.utils.meters import AverageMeter, ProgressMeter
@@ -80,29 +86,33 @@ def validate(core, tc, adapters, frozen, val_loader, tokenizer,
               "adapters": adapters}
     nt = core.cfg.num_tokens
 
+    def gather(x):
+        return gather_rows(x, core.mesh)
+
     for i, batch in enumerate(val_loader):
         if i >= steps:
             break
         jb = _put(batch, device, pixel_dtype)
         metrics = eval_step(adapters, frozen, jb, concat=False)
+        rows = int(global_count(torch.tensor(len(batch["ret_tokens"])),
+                                core.mesh))
         for k, m in meters.items():
-            m.update(float(metrics[k]), len(batch["ret_tokens"]))
+            m.update(float(metrics[k]), rows)
         with torch.no_grad():
             r = core.forward(params, jb["pixels"], jb["ret_tokens"],
                              jb["ret_len"], mode="retrieval",
                              prefix_ids=prefix_ids)
-        all_vis.append(r["visual_embs"].float().cpu().numpy())
-        all_txt.append(r["last_embedding"].float().cpu().numpy())
+        all_vis.append(gather(r["visual_embs"].float()))
+        all_txt.append(gather(r["last_embedding"].float()))
         del r
 
         if decode_captions:
             toks = generate_caption_tokens(core, params, jb["pixels"],
                                            prefix_ids)
-            batch_gen = decode_tokens(tokenizer, toks)
-            batch_gt = decode_tokens(tokenizer, batch["ret_tokens"],
-                                     strip_img_tokens=nt)
-            gen_caps.extend(batch_gen)
-            gt_caps.extend(batch_gt)
+            gen_caps.extend(decode_tokens(tokenizer, gather(toks)))
+            gt_caps.extend(decode_tokens(tokenizer,
+                                         gather(batch["ret_tokens"]),
+                                         strip_img_tokens=nt))
             if i == 0 and writer is not None:
                 # input | GT caption | generated caption
                 # (reference validate.py:196-211)
@@ -111,7 +121,11 @@ def validate(core, tc, adapters, frozen, val_loader, tokenizer,
 
                 px = np.clip(np.asarray(batch["pixels"], np.float32)
                              * CLIP_STD + CLIP_MEAN, 0, 1)
-                grid = caption_grid(px, batch_gt, batch_gen)
+                # this rank's rows
+                grid = caption_grid(
+                    px, decode_tokens(tokenizer, batch["ret_tokens"],
+                                      strip_img_tokens=nt),
+                    decode_tokens(tokenizer, toks))
                 writer.add_image("val/images_captioning",
                                  grid.transpose(2, 0, 1), epoch + 1)
         if i % 10 == 0:

@@ -5,8 +5,13 @@ read by the trainer's --resume and the inference path), the reference's
 saved and come back as numpy arrays (the reference adapters as fp32 CPU
 tensors); the caller moves them to its device. The flattened keys are
 gill_tpu's, so either package reads the other's adapters; the optimizer
-state each package stores is its own. gill_tpu's orbax backend (sharded,
-multi-host) is JAX-only and not ported."""
+state each package stores is its own.
+
+gill_tpu's collective "orbax" backend keeps its names here
+(`save_checkpoint_orbax`, `latest_orbax_step`, `load_checkpoint_orbax`,
+`orbax_<step>/` with a `meta.json` from rank 0) but writes with
+torch.distributed.checkpoint: it does not read a checkpoint that orbax
+wrote, nor orbax one of these."""
 
 from __future__ import annotations
 
@@ -31,20 +36,22 @@ def _leaf_to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def _flatten(tree, prefix=""):
-    """{"a": {"b": x}} -> {"a//b": x}; list / tuple items under "#i", an
-    empty one as "#empty" (gill_tpu's keys)."""
+def _flatten(tree, prefix="", leaf=_leaf_to_numpy):
+    """{"a": {"b": x}} -> {"a//b": leaf(x)}; list / tuple items under "#i",
+    an empty one as "#empty" (gill_tpu's keys)."""
     out = {}
     if isinstance(tree, dict):
         for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}{SEP}{k}" if prefix else str(k)))
+            out.update(_flatten(v, f"{prefix}{SEP}{k}" if prefix else str(k),
+                                leaf))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            out.update(_flatten(v, f"{prefix}{SEP}#{i}" if prefix else f"#{i}"))
+            out.update(_flatten(v, f"{prefix}{SEP}#{i}" if prefix else f"#{i}",
+                                leaf))
         if len(tree) == 0:
             out[prefix + SEP + "#empty"] = np.zeros((0,))
     else:
-        out[prefix] = _leaf_to_numpy(tree)
+        out[prefix] = leaf(tree)
     return out
 
 
@@ -99,6 +106,101 @@ def load_checkpoint(ckpt_dir: str) -> Tuple[Any, dict]:
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     return _unflatten(flat), meta
+
+
+# ---------------------------------------------------------------------------
+# the collective backend (gill_tpu's orbax names, torch.distributed.checkpoint)
+# ---------------------------------------------------------------------------
+
+KEYS = "keys.json"
+
+
+def _orbax_path(ckpt_dir: str, step: int) -> str:
+    base = os.path.basename(os.path.normpath(ckpt_dir))
+    if base == f"orbax_{step}":
+        return ckpt_dir
+    return os.path.join(ckpt_dir, f"orbax_{step}")
+
+
+def _is_rank0() -> bool:
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def save_checkpoint_orbax(state_tree, ckpt_dir: str, *, step: int,
+                          meta: Optional[dict] = None):
+    """Writes `<ckpt_dir>/orbax_<step>/` with torch.distributed.checkpoint.
+    Collective: every rank calls it with its state (replicated leaves are
+    written once); `meta.json` ({"step": step, **meta}) is written by rank
+    0 after the save, with `keys.json`, the leaves' order. Leaves are
+    flattened to gill_tpu's keys; ints (the optimizer's counts) are
+    stored as 0-d int64 tensors. This is not
+    orbax's format: orbax does not read it, and this does not read
+    orbax's."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(_orbax_path(ckpt_dir, step))
+    flat = _flatten(state_tree, leaf=lambda v: v.detach().cpu().clone()
+                    if torch.is_tensor(v) else torch.as_tensor(v))
+    dcp.save(flat, checkpoint_id=path)
+    if _is_rank0():
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump({"step": int(step), **(meta or {})}, f)
+        # the tree's leaf order (the checkpoint's index keeps its own)
+        with open(os.path.join(path, KEYS), "w") as f:
+            json.dump(list(flat), f)
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def latest_orbax_step(ckpt_dir: str) -> Optional[int]:
+    """Largest step with an `orbax_<step>` checkpoint under ckpt_dir (the
+    dir itself may also be one `orbax_<step>` directory); None if there
+    is none."""
+    import glob as _glob
+
+    base = os.path.basename(os.path.normpath(ckpt_dir))
+    if base.startswith("orbax_") and base[6:].isdigit():
+        return int(base[6:])
+    cands = [p for p in _glob.glob(os.path.join(ckpt_dir, "orbax_*"))
+             if p.rsplit("_", 1)[1].isdigit()]
+    if not cands:
+        return None
+    return max(int(p.rsplit("_", 1)[1]) for p in cands)
+
+
+def load_checkpoint_orbax(ckpt_dir: str, step: Optional[int] = None
+                          ) -> Tuple[Any, dict]:
+    """Restores `save_checkpoint_orbax`'s directory (the latest step when
+    `step` is None): every rank reads the whole replicated state, with
+    numpy leaves, as `load_checkpoint` returns them (gill_tpu's `target`,
+    a placement of JAX arrays, has no counterpart)."""
+    import torch
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+
+    if step is None:
+        step = latest_orbax_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no orbax_<step> checkpoint under "
+                                    f"{ckpt_dir}")
+    path = os.path.abspath(_orbax_path(ckpt_dir, step))
+    md = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    with open(os.path.join(path, KEYS)) as f:
+        keys = json.load(f)
+    flat = {}
+    for k in keys:
+        m = md[k]
+        if not isinstance(m, TensorStorageMetadata):
+            raise ValueError(f"unexpected entry {k} in {path}")
+        flat[k] = torch.empty(m.size, dtype=m.properties.dtype)
+    dcp.load(flat, checkpoint_id=path)
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    return _unflatten({k: v.numpy() for k, v in flat.items()}), meta
 
 
 def load_decision_model(path: str) -> dict:

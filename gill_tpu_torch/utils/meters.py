@@ -1,6 +1,9 @@
-"""Console metering (reference gill/utils.py:176-249); gill_tpu's
-utils/meters.py without the cross-host `all_reduce`: the port trains in
-one process (ROADMAP Q1.8)."""
+"""Console metering (reference gill/utils.py:176-249; gill_tpu's
+utils/meters.py). The train step's metrics are already the global
+batch's (train/trainer.py), so `AverageMeter.all_reduce` (the reference's
+meter.all_reduce, utils.py:225-230) is needed only for values each rank
+measured on its own; it sums (sum, count) over the process group and is
+a no-op in one process."""
 
 from __future__ import annotations
 
@@ -33,6 +36,18 @@ class AverageMeter:
         self.sum += val * n
         self.count += n
         self.avg = self.sum / max(self.count, 1)
+
+    def all_reduce(self):
+        """Sums (sum, count) over every process and recomputes avg; nothing
+        without a process group."""
+        import torch
+        import torch.distributed as dist
+
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            total = torch.tensor([self.sum, self.count], dtype=torch.float64)
+            dist.all_reduce(total)
+            self.sum, self.count = total.tolist()
+            self.avg = self.sum / max(self.count, 1)
 
     def __str__(self):
         fmtstr = "{name} {val" + self.fmt + "} ({avg" + self.fmt + "})"

@@ -47,7 +47,11 @@ for needed in ("gill_tpu_torch.serve.engine", "gill_tpu_torch.serve.gill_engine"
                "gill_tpu_torch.main", "gill_tpu_torch.train.trainer",
                "gill_tpu_torch.train.validate", "gill_tpu_torch.train.losses",
                "gill_tpu_torch.train.bleu", "gill_tpu_torch.data.dataset",
-               "gill_tpu_torch.utils.tb", "gill_tpu_torch.utils.meters"):
+               "gill_tpu_torch.utils.tb", "gill_tpu_torch.utils.meters",
+               "gill_tpu_torch.parallel.mesh",
+               "gill_tpu_torch.parallel.collectives",
+               "gill_tpu_torch.parallel.partition",
+               "gill_tpu_torch.parallel.launch"):
     assert needed in names, needed
 assert not bad, bad
 """

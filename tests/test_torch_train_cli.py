@@ -243,14 +243,22 @@ def test_cli_trains_validates_and_checkpoints_on_cpu(tmp_path):
     assert int(tree["opt_state"]["count"]) == 4
 
 
-@pytest.mark.parametrize("flag", [["--tp-size", "2"], ["--dp-size", "2"],
+@pytest.mark.parametrize("flag", [["--tp-size", "2"],
+                                  ["--dp-size", "2", "--tp-size", "2"],
                                   ["--multihost"],
-                                  ["--ckpt-backend", "orbax"]])
-def test_cli_refuses_what_is_not_ported(flag):
+                                  ["--tp-size", "3", "--multihost"]])
+def test_cli_refuses_what_is_not_ported(flag, tmp_path):
+    """One process without torch.distributed.run's environment forms no
+    mesh of more than one model rank, and --multihost asks for that
+    environment (the distributed runs are tests/test_torch_dist_cli.py's);
+    nothing is written before the refusal."""
     from gill_tpu_torch import main as tmain
 
-    with pytest.raises(NotImplementedError, match="Q1.8"):
-        tmain.main(flag)
+    match = "torch.distributed.run" if "--multihost" in flag else "exceeds"
+    with pytest.raises(SystemExit, match=match):
+        tmain.main(flag + ["--device", "cpu",
+                           "--log-base-dir", str(tmp_path / "runs")])
+    assert not (tmp_path / "runs").exists()
 
 
 def test_cli_needs_a_card_unless_told_cpu(tmp_path, monkeypatch):
