@@ -32,7 +32,9 @@
    exactly its v1, two calls bit for bit, and its `decode_plan` the C
    side's; it is also timed L2-cold (`ms_cold`, as a decode step reads
    each layer's cache) beside `flat_read_ms`, one `torch.sum` over as many
-   contiguous bytes as its valid rows hold.
+   contiguous bytes as its valid rows hold, and its library time is
+   `scaled_dot_product_attention` over the rows with each row's own token
+   appended and a boolean valid-prefix mask (`decode_sdpa`).
 4. Main path (slice 1) at full width: `load_gill` on a model_args.json for
    OPT-6.7B + CLIP ViT-L/14 + SD v1.5 (512 x 512, 50-step PNDM, CFG 7.5) with
    random weights made on the device from a seeded torch.Generator, a random
@@ -182,7 +184,34 @@
    reading, then a one-step resume from it on both ranks. Prints each
    part's report, memory per rank, `phase_s` and the card's name and
    power limit.
-12. Checks: finite outputs of the expected shapes; request (a) gives the
+12. The evals, the demo, the examples and the data / decision scripts
+   (slice 15), phase J, after phase G on the main path's model, each part
+   with the launch counts set to 0 before it and read after, on a line
+   of its own with its seconds, peak memory and the card's name and power
+   limit: (J1) `evals.generate_vist_images` on two synthetic stories of
+   five steps (seeded 224² PNGs), sequentially then at --batch 2: one
+   finite 512² PNG a story, the two routes' texts equal, K1, K2 and K3
+   launched, K6 on --batch; (J2) `evals.compute_clip_similarity` (a random
+   fp32 ViT-L/14, as without weights) on J1's images against the stories'
+   last ones: scores finite in [-1, 1], an image against itself 1 within
+   1e-5, K1 launched; (J3) `evals.lpips_2dirs` at 256² on seeded random
+   AlexNet weights in gill_tpu's .npz layout: d(x, x) < 1e-6, d(x, noisy
+   x) > 1e-3, the card within 1e-4 relative of --device cpu; (J4)
+   `scripts.extract_img_embs` on 64 images at batch 32: the file read back
+   bit for bit the model's own retrieval embeddings, images/s, K1
+   launched; (J5) `scripts.preprocess_sd_embeddings` on 8 captions ((77,
+   768) fp16 files, none pending after) and `scripts.generate_sd_p2_images`
+   on 2 prompts with the main path's SD weights (finite 512² PNGs; K1, K2,
+   K3); (J6) `scripts.train_decision_classifier` on 64 synthetic prompts
+   (features at OPT-6.7B's 4,096), 200 steps, the saved MLP loaded through
+   `load_decision_model` routing one forced-[IMG] request; (J7) the demo's
+   `ChatSession` (a text turn, then an image forced with
+   gen_scale_factor 1e6) and its HTML export, the REPL on scripted stdin,
+   `examples.inference_examples`' four examples,
+   `scripts.validate_real_weights` without assets (every check SKIPPED,
+   status 0) and, inside phase H1, `scripts.prune_model_ckpt` on its
+   checkpoint (the `.npz` equal to `ckpt_best/`'s adapters).
+13. Checks: finite outputs of the expected shapes; request (a) gives the
    same tokens with every kernel swapped for its plain version; CLIP, the
    OPT prefill, one full-width UNet step, the VAE decode and one W8 decode
    step of phase A agree with their plain-version runs within stated
@@ -370,6 +399,25 @@ def decode_ms_cold(torch, pool, s, q, lens, k1, v1, scale) -> float:
         for p in pools], 24)
     del pools
     return ms
+
+
+def decode_sdpa(torch, q, k, v, lens, k1, v1, scale):
+    """K6's function as one library call: a zero-argument callable running
+    `scaled_dot_product_attention` over the cache rows with each row's own
+    token appended (one copy, made here, outside the call) and a (B, 1,
+    1, S + 1) boolean mask that keeps each row's valid prefix and its own
+    token; (B, 1, H, D) out, as `prefix_decode_attention`."""
+    import torch.nn.functional as F
+
+    s = k.shape[1]
+    kk = torch.cat([k, k1.to(k.dtype)], dim=1).transpose(1, 2)
+    vv = torch.cat([v, v1.to(v.dtype)], dim=1).transpose(1, 2)
+    pos = torch.arange(s + 1, device=q.device)
+    mask = ((pos[None] < lens.long().clamp(0, s)[:, None]) | (pos == s)
+            )[:, None, None, :]
+    qq = q.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask, scale=scale).transpose(1, 2)
 
 
 def flat_read_ms(torch, dev, n: int) -> float:
@@ -574,6 +622,8 @@ def kernel_phase(torch, dev):
         err_b, tol_b = per_row_err(torch, out, ref)
         worst = int((err_b / tol_b.clamp_min(1e-30)).argmax())
         parked_exact = bool(torch.equal(out[0], v1[0]))
+        lib = decode_sdpa(torch, q, k, v, lens, k1, v1, scale)
+        lib_err = float((lib().float() - ref.float()).abs().max())
         n_rows = int(lens.sum())
         bms, by = bound(n_rows * h * d * 2 * 2 + 4 * b * h * d * 2 + 4 * b,
                         4.0 * n_rows * h * d, "fp32")
@@ -591,7 +641,12 @@ def kernel_phase(torch, dev):
                "flat_read_ms": flat_read_ms(torch, dev, n_rows * h * d * 2),
                "plain_ms": cuda_ms(lambda: prefix_decode_attention_ref(
                    q, k, v, lens, k1, v1, scale=scale), 20),
-               "bound_ms": bms, "bound_by": by, "library_ms": None,
+               "bound_ms": bms, "bound_by": by,
+               "library_ms": cuda_ms(lib, 20),
+               "library_computes": "scaled_dot_product_attention over the "
+                                   "rows + own token, (B, 1, 1, S + 1) bool "
+                                   "mask",
+               "library_err": lib_err,
                "tol_rule": "per row", "worst_row": worst,
                "worst_row_err": float(err_b[worst]),
                "parked_row_exact": parked_exact,
@@ -2836,6 +2891,523 @@ def phase_g(torch, dev, model):
 # probe scripts (slice 4)
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase J: the evals, the demo, the examples and the data / decision scripts
+# ---------------------------------------------------------------------------
+
+J_STEPS = 50            # the protocol's PNDM steps at 512², CFG 7.5
+
+
+def _j_png_dir(d: str, names, size: int, seed: int) -> list:
+    """Seeded random RGB PNGs `<name>.png` in d; returns their paths."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    paths = []
+    for name in names:
+        path = os.path.join(d, f"{name}.png")
+        Image.fromarray(rng.randint(0, 256, (size, size, 3), np.uint8)
+                        ).save(path)
+        paths.append(path)
+    return paths
+
+
+def _j_pngs_ok(paths, size: int) -> bool:
+    """Each file a (size, size) RGB image that is not one flat colour."""
+    import numpy as np
+    from PIL import Image
+
+    for p in paths:
+        a = np.asarray(Image.open(p))
+        if a.shape != (size, size, 3) or a.std() == 0:
+            return False
+    return True
+
+
+class _FiniteImages:
+    """Counts the SD outputs a GILL converts to images, and the non-finite
+    ones among them (GILL._to_pil rounds NaN away)."""
+
+    def __init__(self, torch, model):
+        self.torch, self.model, self.n, self.bad = torch, model, 0, 0
+
+    def __enter__(self):
+        orig = type(self.model)._to_pil
+
+        def check(arr):
+            self.n += arr.shape[0]
+            self.bad += int((~self.torch.isfinite(arr)).any(
+                dim=(1, 2, 3)).sum())
+            return orig(arr)
+
+        self.model._to_pil = check
+        return self
+
+    def __exit__(self, *exc):
+        del self.model._to_pil
+
+
+def j1_vist(torch, model, tmp, rep):
+    """Two synthetic VIST stories of five steps through #6, sequentially
+    then --batch 2 (the retrieval index off, as the script loads)."""
+    import json as _json
+
+    from gill_tpu_torch.evals import generate_vist_images as gv
+
+    vist = os.path.join(tmp, "vist")
+    _j_png_dir(os.path.join(vist, "val_images"),
+               [f"s{s}i{i}" for s in range(2) for i in range(5)], 224, 61)
+    stories = {f"story{s}": [
+        {"caption": f"{w} step {i} of the trip to the lake.",
+         "image_id": f"s{s}i{i}", "sequence_index": i}
+        for i, w in enumerate(["We", "Then", "Later", "Next", "Finally"])]
+        for s in range(2)}
+    with open(os.path.join(vist, "val_formatted.json"), "w") as f:
+        _json.dump({"annotations": stories}, f)
+    index, model.index = model.index, None
+    out = {}
+    try:
+        for batch, name in ((1, "seq"), (2, "batch")):
+            zero_launches()
+            t0 = time.perf_counter()
+            with _FiniteImages(torch, model) as fin:
+                out[name] = gv.generate_all(
+                    model, gv.story_prompts(vist),
+                    os.path.join(tmp, f"vist_{name}"), batch=batch,
+                    num_inference_steps=J_STEPS)
+            torch.cuda.synchronize()
+            paths = [os.path.join(tmp, f"vist_{name}", f"{k}.png")
+                     for k in ("s0i4", "s1i4")]
+            rep[name] = {"s": time.perf_counter() - t0,
+                         "launches": read_launches(),
+                         "images": fin.n, "non_finite": fin.bad,
+                         "pngs_ok": _j_pngs_ok(paths, 512),
+                         "texts": out[name]}
+    finally:
+        model.index = index
+    rep["tokens_equal"] = out["seq"] == out["batch"]
+    fails = []
+    for name, need in (("seq", ("flash_attention", "flash_mma", "geglu_ff")),
+                       ("batch", ("flash_attention", "flash_mma", "geglu_ff",
+                                  "prefix_decode_attention"))):
+        r = rep[name]
+        if sorted(r["texts"]) != ["s0i4", "s1i4"] or not r["pngs_ok"] \
+                or r["images"] != 2 or r["non_finite"]:
+            fails.append(f"J1 {name}: {r}")
+        fails += [f"J1 {name}: {k} not launched" for k in need
+                  if not r["launches"][k]]
+    if not rep["tokens_equal"]:
+        fails.append(f"J1: --batch texts {out['batch']} != {out['seq']}")
+    rep["vist_dir"] = vist
+    return fails
+
+
+def j2_clip_sim(torch, dev, tmp, vist, rep):
+    """#4 on J1's sequential outputs against the stories' last images."""
+    from gill_tpu_torch.evals import compute_clip_similarity as ccs
+
+    params, cfg = ccs.load_clip("openai/clip-vit-large-patch14", None, dev)
+    scores = ccs.score_pairs(params, cfg, ccs.pairs_vist(
+        os.path.join(vist, "val_formatted.json"),
+        os.path.join(vist, "val_images"), os.path.join(tmp, "vist_seq")),
+        dev)
+    px = torch.randn(1, cfg.image_size, cfg.image_size, 3, device=dev,
+                     generator=torch.Generator(dev).manual_seed(62))
+    rep["scores"] = scores
+    rep["self_sim_err"] = float((ccs.cos_sim(params, cfg, px, px) - 1
+                                 ).abs().max())
+    del params
+    fails = []
+    if len(scores) != 2 or not all(math.isfinite(x) and -1 <= x <= 1
+                                   for x in scores):
+        fails.append(f"J2: scores {scores}")
+    if rep["self_sim_err"] > 1e-5:
+        fails.append(f"J2: an image against itself {rep['self_sim_err']}")
+    return fails
+
+
+def _j_lpips_npz(path: str) -> str:
+    import numpy as np
+
+    from gill_tpu_torch.evals.lpips_2dirs import ALEX_CONVS
+
+    rng = np.random.RandomState(63)
+    blobs, cin = {}, 3
+    for i, (cout, k, _, _) in enumerate(ALEX_CONVS):
+        blobs[f"conv{i}_w"] = (rng.randn(k, k, cin, cout)
+                               * (2.0 / (k * k * cin)) ** 0.5
+                               ).astype(np.float32)
+        blobs[f"conv{i}_b"] = np.zeros(cout, np.float32)
+        blobs[f"lin{i}_w"] = rng.rand(cout).astype(np.float32)
+        cin = cout
+    np.savez(path, **blobs)
+    return path
+
+
+def j3_lpips(torch, dev, tmp, rep):
+    """#3 at 256² on seeded random AlexNet and calibration weights in
+    gill_tpu's .npz layout: d(x, x), d(x, noisy x), card against CPU."""
+    import numpy as np
+    from PIL import Image
+
+    from gill_tpu_torch.evals import lpips_2dirs
+
+    w = _j_lpips_npz(os.path.join(tmp, "lpips.npz"))
+    d0, d1 = os.path.join(tmp, "lp0"), os.path.join(tmp, "lp1")
+    a, b = _j_png_dir(d0, ["same", "noisy"], 256, 64)
+    os.makedirs(d1)
+    Image.open(a).save(os.path.join(d1, "same.png"))
+    x = np.asarray(Image.open(b), np.float32)
+    noise = np.random.RandomState(65).randn(*x.shape) * 40
+    Image.fromarray(np.clip(x + noise, 0, 255).astype(np.uint8)).save(
+        os.path.join(d1, "noisy.png"))
+    got = {}
+    for dev_name in (dev.type, "cpu"):
+        out = os.path.join(tmp, f"lpips_{dev_name}.txt")
+        lpips_2dirs.main(["-d0", d0, "-d1", d1, "-o", out,
+                          "--lpips-weights", w, "--device", dev_name])
+        got[dev_name] = {ln.split(": ")[0]: float(ln.split(": ")[1])
+                         for ln in open(out).read().splitlines()[:-1]}
+    card = got[dev.type]
+    rep["card"], rep["cpu"] = card, got["cpu"]
+    rel = {k: abs(card[k] - got["cpu"][k]) / max(abs(got["cpu"][k]), 1e-30)
+           for k in got["cpu"]}
+    rep["card_vs_cpu_rel"] = rel
+    fails = []
+    if not card["same.png"] < 1e-6:
+        fails.append(f"J3: d(x, x) = {card['same.png']}")
+    if not card["noisy.png"] > 1e-3:
+        fails.append(f"J3: d(x, noisy x) = {card['noisy.png']}")
+    if not rel["noisy.png"] <= 1e-4 or abs(
+            card["same.png"] - got["cpu"]["same.png"]) > 1e-6:
+        fails.append(f"J3: card vs CPU {rel}")
+    return fails
+
+
+def j4_embeddings(torch, model, tmp, rep):
+    """#5 on 64 images at batch 32: the file read back through
+    `load_embeddings` equals the model's own retrieval embeddings."""
+    import numpy as np
+    from PIL import Image
+
+    from gill_tpu_torch.retrieval import load_embeddings, save_embeddings
+    from gill_tpu_torch.scripts import extract_img_embs as ex
+    from gill_tpu_torch.utils.image import clip_preprocess
+
+    paths = _j_png_dir(os.path.join(tmp, "emb_imgs"),
+                       [f"{i:03d}" for i in range(64)], 256, 66)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embs = ex.extract(model, paths, 32)
+    torch.cuda.synchronize()
+    rep["images_per_s"] = len(paths) / (time.perf_counter() - t0)
+    save_embeddings(os.path.join(tmp, "cc3m_j4.npy"), paths, embs)
+    got_paths, got = load_embeddings(tmp, "cc3m_j4.npy")
+    want = []
+    for i in range(0, 64, 32):
+        px = np.stack([clip_preprocess(Image.open(p), model.core.cfg.image_size)
+                       for p in paths[i:i + 32]])
+        want.append(model.core.get_visual_embs(
+            model.params, torch.from_numpy(px).to(model.device),
+            "retrieval")[:, 0].float().cpu().numpy())
+    want = np.concatenate(want)
+    rep["shape"] = list(got.shape)
+    rep["bitwise_equal"] = bool(got_paths == paths
+                                and np.array_equal(got, want))
+    return [] if rep["bitwise_equal"] and got.shape == (64, 256) else \
+        [f"J4: {rep}"]
+
+
+def j5_sd_text_and_p2(torch, dev, model, tmp, rep):
+    """#8 on 8 captions (its random fp32 SD v1.5 text tower, as without
+    weights) and #9 on 2 prompts with the main path's SD weights."""
+    import numpy as np
+
+    from gill_tpu_torch.models.sd.pipeline import StableDiffusionPipeline
+    from gill_tpu_torch.scripts import generate_sd_p2_images as p2
+    from gill_tpu_torch.scripts import preprocess_sd_embeddings as pre
+    from gill_tpu_torch.tokenizer import CLIPBPETokenizer
+
+    tsv = os.path.join(tmp, "caps.tsv")
+    with open(tsv, "w") as f:
+        f.write("caption\timage\n")
+        for i in range(8):
+            f.write(f"a photo of a {['red', 'blue'][i % 2]} boat number "
+                    f"{i}\timg{i}.jpg\n")
+    out_dir = os.path.join(tmp, "clip_embs")
+    os.makedirs(out_dir)
+    zero_launches()
+    t0 = time.perf_counter()
+    pipe = pre.text_pipeline(os.path.join(tmp, "no_sd"), dev)
+    pre.encode_rows(pipe, pre.pending_rows(tsv, out_dir))
+    torch.cuda.synchronize()
+    del pipe
+    embs = [np.load(os.path.join(out_dir, f"img{i}.jpg.npy"))
+            for i in range(8)]
+    rep["sd_text"] = {"s": time.perf_counter() - t0,
+                      "launches": read_launches(),
+                      "files_ok": all(e.shape == (77, 768)
+                                      and e.dtype == np.float16
+                                      and np.isfinite(e).all() for e in embs),
+                      "pending_after": len(pre.pending_rows(tsv, out_dir))}
+    zero_launches()
+    t0 = time.perf_counter()
+    sd = model.sd_pipe
+    pipe = StableDiffusionPipeline(sd.cfg, sd.params,
+                                   tokenizer=CLIPBPETokenizer.tiny())
+    p2_tsv = os.path.join(tmp, "p2.tsv")
+    with open(p2_tsv, "w") as f:
+        f.write("Prompt\tCategory\n"
+                "a watercolor of a lighthouse\tArt\n"
+                "two dogs playing in the snow\tAnimals\n")
+    finite = []
+    decode = pipe.decode_latents
+
+    def checked(latents):
+        img = decode(latents)
+        finite.append(bool(torch.isfinite(img).all()))
+        return img
+
+    pipe.decode_latents = checked
+    paths = p2.generate_p2(pipe, p2.read_prompts(p2_tsv),
+                           os.path.join(tmp, "p2_out"),
+                           num_inference_steps=J_STEPS)
+    torch.cuda.synchronize()
+    rep["p2"] = {"s": time.perf_counter() - t0, "launches": read_launches(),
+                 "files": [os.path.basename(p) for p in paths],
+                 "finite": finite, "pngs_ok": _j_pngs_ok(paths, 512)}
+    fails = []
+    if not rep["sd_text"]["files_ok"] or rep["sd_text"]["pending_after"]:
+        fails.append(f"J5 SD text: {rep['sd_text']}")
+    if rep["p2"]["files"] != ["0.png", "1.png"] or finite != [True] \
+            or not rep["p2"]["pngs_ok"]:
+        fails.append(f"J5 P2: {rep['p2']}")
+    fails += [f"J5 P2: {k} not launched" for k in
+              ("flash_attention", "flash_mma", "geglu_ff")
+              if not rep["p2"]["launches"][k]]
+    return fails
+
+
+def j6_decision(torch, dev, model, tmp, rep):
+    """#10 on 64 synthetic prompts (features at OPT-6.7B's width), 200
+    steps; the saved MLP routes one forced-[IMG] request."""
+    import numpy as np
+
+    from gill_tpu_torch.api import _to_device
+    from gill_tpu_torch.models import decision as decision_mod
+    from gill_tpu_torch.scripts import train_decision_classifier as tdc
+    from gill_tpu_torch.utils.ckpt import load_decision_model
+
+    tsv = os.path.join(tmp, "decisions.tsv")
+    with open(tsv, "w") as f:
+        f.write("Prompt\tCategory\tDecision\n")
+        for i in range(64):
+            kind = ["gen", "ret"][i % 2]
+            what = ["an imaginary castle on a cloud",
+                    "a photo of a city street"][i % 2]
+            f.write(f"{what} number {i}\tc\t{kind}\n")
+    prompts, labels = tdc.read_annotations(tsv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = tdc.extract_features(model, prompts)
+    torch.cuda.synchronize()
+    rep["features_s"] = time.perf_counter() - t0
+    for key in ("train_s", "train_again_s"):     # cold, then warm
+        t0 = time.perf_counter()
+        best, f1 = tdc.train_classifier(x, labels, dev, steps=200)
+        torch.cuda.synchronize()
+        rep[key] = time.perf_counter() - t0
+        if key == "train_s":
+            first = best
+    rep["same_seed_same_weights"] = all(np.array_equal(first[k], best[k])
+                                        for k in best)
+    out = os.path.join(tmp, "decision_model.npz")
+    np.savez(out, w=best["w"], b=best["b"])
+    rep["features"] = list(x.shape)
+    rep["best_macro_f1"] = f1
+    saved = model.decision_params
+    model.decision_params = _to_device(load_decision_model(out), dev,
+                                       torch.float32)
+    try:
+        outs = model.generate_for_images_and_texts(
+            ["a watercolor painting of a lighthouse at sunset"], num_words=2,
+            gen_scale_factor=1e5, num_inference_steps=J_STEPS,
+            generator=torch.Generator(dev).manual_seed(67))
+        label, probs = decision_mod.decide(model.decision_params,
+                                           torch.ones(1, x.shape[1],
+                                                      device=dev))
+    finally:
+        model.decision_params = saved
+    rep["decision"] = outs[1]["decision"] if len(outs) > 1 else None
+    fails = []
+    if x.shape != (64, 4096) or not np.isfinite(x).all():
+        fails.append(f"J6: features {x.shape}")
+    if not rep["same_seed_same_weights"]:
+        fails.append("J6: two trainings from one seed differ")
+    d = rep["decision"]
+    if not d or d[0] not in ("gen", "ret") or abs(sum(d[1]) - 1) > 1e-5 \
+            or label not in ("gen", "ret"):
+        fails.append(f"J6: routed {d}")
+    return fails
+
+
+def j7_apps(torch, dev, model, tmp, rep):
+    """The demo's ChatSession (a text turn, then an image forced with
+    gen_scale_factor 1e6) and HTML export, its REPL on scripted stdin,
+    the four inference examples and validate_real_weights with no assets
+    (every check SKIPPED, status 0)."""
+    import io
+    import json as _json
+    import types
+
+    import numpy as np
+    from PIL import Image
+
+    from gill_tpu_torch.demo import app_gradio
+    from gill_tpu_torch.examples import inference_examples as ex
+    from gill_tpu_torch.scripts import validate_real_weights as vrw
+
+    fails = []
+    zero_launches()
+    t0 = time.perf_counter()
+    session = app_gradio.ChatSession(model)
+    first = session.user_turn("what should I pack for a picnic")
+    session.gen_scale_factor = 1e6
+    second = session.user_turn("show me a picnic by the lake")
+    html = app_gradio.export_conversation_html(
+        session.conversation, os.path.join(tmp, "chat.html"))
+    torch.cuda.synchronize()
+    rep["chat"] = {"s": time.perf_counter() - t0,
+                   "launches": read_launches(),
+                   "replies": [[r if isinstance(r, str) else list(r.size)
+                                for r in x] for x in (first, second)],
+                   "html_images": open(html).read().count(
+                       "data:image/png;base64,")}
+    if not all(isinstance(r, str) for r in first) or not any(
+            isinstance(r, Image.Image) and r.size == (512, 512)
+            for r in second) or rep["chat"]["html_images"] != 1:
+        fails.append(f"J7 chat: {rep['chat']}")
+    args = types.SimpleNamespace(save_dir=os.path.join(tmp, "repl"))
+    os.makedirs(args.save_dir)
+    stdin = sys.stdin
+    sys.stdin = io.StringIO("hello there\n/save\n/quit\n")
+    try:
+        app_gradio.launch_repl(model, args)
+    finally:
+        sys.stdin = stdin
+    rep["repl_files"] = sorted(os.listdir(args.save_dir))
+    if not any(f.startswith("conversation_") and f.endswith(".html")
+               for f in rep["repl_files"]):
+        fails.append(f"J7 REPL: {rep['repl_files']}")
+    zero_launches()
+    t0 = time.perf_counter()
+    img = Image.fromarray(np.random.RandomState(68).randint(
+        0, 256, (300, 260, 3), np.uint8))
+    res = ex.run_examples(model, os.path.join(tmp, "examples"), img)
+    torch.cuda.synchronize()
+    rep["examples"] = {"s": time.perf_counter() - t0,
+                       "launches": read_launches(),
+                       "files": sorted(os.listdir(os.path.join(
+                           tmp, "examples"))),
+                       "log_likelihood": res["log_likelihood"],
+                       "routes": {k: [type(o).__name__ for o in v]
+                                  for k, v in res.items()
+                                  if k != "log_likelihood"}}
+    if not math.isfinite(res["log_likelihood"]) or not isinstance(
+            res["forced_image"][-1], dict) or \
+            "forced_image_gen0.png" not in rep["examples"]["files"]:
+        fails.append(f"J7 examples: {rep['examples']}")
+    empty = os.path.join(tmp, "no_assets")
+    os.makedirs(empty)
+    report = os.path.join(tmp, "weights_report.json")
+    saved_env = {k: os.environ.pop(k, None) for k in (
+        "GILL_TPU_WEIGHTS_DIR", "GILL_TPU_TOKENIZER_DIR",
+        "GILL_TPU_LPIPS_WEIGHTS")}
+    try:
+        rc = vrw.main(["--weights-dir", empty, "--tokenizer-dir", empty,
+                       "--out", report])
+    finally:
+        os.environ.update({k: v for k, v in saved_env.items()
+                           if v is not None})
+    results = _json.load(open(report))["results"]
+    rep["validate"] = {"rc": rc, "status": {k: v["status"]
+                                            for k, v in results.items()}}
+    if rc != 0 or set(results) != set(vrw.CHECKS) or any(
+            v["status"] != "SKIPPED" or not v["reason"]
+            for v in results.values()):
+        fails.append(f"J7 validate: {rep['validate']}")
+    return fails
+
+
+def phase_j(torch, dev, model):
+    """Slice 15 (docstring item 12), on the main path's model: each part
+    with its launch counts set to 0 before it and read after, its
+    seconds, peak memory and the card's name and power limit on a line of
+    its own; a part that raises is a failure. J7's pruning of a training
+    checkpoint runs inside phase H (`j7_prune`), where one exists."""
+    import traceback
+
+    rep, failures = {}, []
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        parts = [("J1", lambda r: j1_vist(torch, model, tmp, r)),
+                 ("J2", lambda r: j2_clip_sim(torch, dev, tmp,
+                                              rep["J1"]["vist_dir"], r)),
+                 ("J3", lambda r: j3_lpips(torch, dev, tmp, r)),
+                 ("J4", lambda r: j4_embeddings(torch, model, tmp, r)),
+                 ("J5", lambda r: j5_sd_text_and_p2(torch, dev, model, tmp,
+                                                    r)),
+                 ("J6", lambda r: j6_decision(torch, dev, model, tmp, r)),
+                 ("J7", lambda r: j7_apps(torch, dev, model, tmp, r))]
+        for name, fn in parts:
+            r = rep[name] = {}
+            zero_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                fails = fn(r)
+            except Exception:
+                fails = [f"{name}: {traceback.format_exc(limit=6)}"]
+            torch.cuda.synchronize()
+            r.setdefault("launches", read_launches())
+            r["part_s"] = time.perf_counter() - t0
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            r["device"] = smi_line()
+            failures += fails
+            log(f"apps phase {name}:", json.dumps(r, default=str))
+            torch.cuda.empty_cache()
+        for name, need in (("J2", "flash_attention"),
+                           ("J4", "flash_attention")):
+            if not rep[name]["launches"][need]:
+                failures.append(f"{name}: {need} not launched")
+    rep["phase_s"] = time.perf_counter() - t_phase
+    return rep, failures
+
+
+def j7_prune(log_dir: str) -> tuple:
+    """#2 on a training run's checkpoint (phase H1's): the `.npz` holds
+    the adapters of `ckpt_best/` under gill_tpu's names, no optimizer
+    state. Returns (report, failures)."""
+    import numpy as np
+
+    from gill_tpu_torch.scripts import prune_model_ckpt
+    from gill_tpu_torch.utils import ckpt as ckpt_utils
+
+    t0 = time.perf_counter()
+    path = prune_model_ckpt.main([log_dir])
+    got = dict(np.load(path))
+    tree, _ = ckpt_utils.load_checkpoint(os.path.join(log_dir, "ckpt_best"))
+    want = ckpt_utils._flatten(tree["adapters"])
+    rep = {"s": time.perf_counter() - t0, "keys": len(got),
+           "mb": os.path.getsize(path) / 1e6,
+           "equal": sorted(got) == sorted(want) and all(
+               np.array_equal(got[k], want[k]) for k in want)}
+    return rep, [] if rep["equal"] else [f"J7 prune: {rep}"]
+
+
 def probe_kernel_rows(torch, dev, record):
     """S1's seven cases and every S2/S3 variant of the sweep at the probes'
     full shapes, each against its plain version; each row goes to
@@ -3231,6 +3803,9 @@ def h1_cli(torch, dev, tmp, failures):
     rep["img_norm_rel_err"] = float((norms / target - 1).abs().max())
     if rep["img_norm_rel_err"] > H_RENORM_RTOL:
         failures.append(f"H1: [IMG] norms {norms.tolist()} vs {target}")
+    # phase J7's checkpoint pruning, on this run's checkpoint
+    rep["j7_prune"], prune_failures = j7_prune(log_dir)
+    failures += prune_failures
     return rep, (core, seen["frozen"], state, root)
 
 
@@ -4517,6 +5092,11 @@ def main() -> int:
         g_report, g_failures = phase_g(torch, dev, model)
         failures += g_failures
         log("weights phase G:", json.dumps(g_report))
+        torch.cuda.empty_cache()
+        j_report, j_failures = phase_j(torch, dev, model)
+        failures += j_failures
+        log("apps phase J:", json.dumps({"phase_s": j_report["phase_s"],
+                                         "failures": len(j_failures)}))
         del model
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -4529,6 +5109,7 @@ def main() -> int:
     h_report, h_failures = phase_h(torch, dev)
     failures += h_failures
     log("training phase H:", json.dumps(h_report))
+    log("apps phase J7 prune:", json.dumps(h_report["h1"].get("j7_prune")))
     torch.cuda.empty_cache()
     i_report, i_failures = phase_i(torch, dev)
     failures += i_failures

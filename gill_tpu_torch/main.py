@@ -24,8 +24,9 @@ main.py in these ways:
     log directory and broadcasts its path, and alone writes TensorBoard,
     args.json and the npz checkpoints; `--ckpt-backend orbax` writes
     `orbax_<step>/` collectively with torch.distributed.checkpoint (not
-    orbax's format). With concat_captions a step packs pairs of a rank's
-    own rows, so it needs an even count of rows a rank;
+    orbax's format). A concat-captions step packs the global batch's
+    pairs whenever the global batch is even, as main.py does; a pair that
+    spans two ranks is packed on the first (train/trainer.py `pair_rows`);
   * `--profile-steps N` writes a torch.profiler trace of N steps to
     `<log dir>/trace/`;
   * fp32 products stay fp32 (TF32 off).
@@ -429,10 +430,10 @@ def main(argv) -> str:
                     it = iter(train_loader)
                     batch = next(it)
                 data_time.update(time.time() - end)
-                # the same draw on every rank; pairs are packed within a
-                # rank's rows
+                # the same draw on every rank; the global batch's pairs
+                # are packed (the trainer moves a pair's rows together)
                 concat = bool(rng.uniform() < tc.concat_captions_prob) and \
-                    ((tc.batch_size // dp) % 2 == 0)
+                    (tc.batch_size % 2 == 0)
                 actual_step = epoch * tc.steps_per_epoch + i + 1
                 run_step = ((epoch - args.start_epoch) * tc.steps_per_epoch
                             + i + 1)

@@ -17,7 +17,8 @@ its backward all-reduces the gradient again, which multiplies it by tp.
 rank its own slice of the gradient backward: every rank computes the
 whole loss of the gathered rows, so the gradient of its rows is already
 whole, and the sum over "data" of the adapters' gradients (the trainer's
-`sum_over_data`) adds each rank's own contribution once.
+`sum_over_data`) adds each rank's own contribution once. Ranks may hold
+different row counts (a concat-packed step, `exchange_first_rows`).
 
 Without a group of more than one rank (no mesh, the single-device mesh,
 or an axis of size 1) every function returns its input. Only `all_reduce`, `broadcast` and the list form of
@@ -68,23 +69,31 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
-def _all_gather_rows(x, group):
+def _all_gather_rows(x, group, counts=None):
+    """Every rank's rows, rank-major; `counts` (one per rank) where ranks
+    hold different counts: each pads to the largest, the pads dropped."""
     x = x.contiguous()
+    big = x.shape[0] if counts is None else max(counts)
+    if x.shape[0] < big:
+        x = torch.cat([x, x.new_zeros((big - x.shape[0], *x.shape[1:]))])
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
-    return torch.cat(parts)
+    if counts is None:
+        return torch.cat(parts)
+    return torch.cat([p[:c] for p, c in zip(parts, counts)])
 
 
 class _GatherData(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.lo = dist.get_rank(group) * x.shape[0]
+    def forward(ctx, x, group, counts):
+        r = dist.get_rank(group)
+        ctx.lo = r * x.shape[0] if counts is None else sum(counts[:r])
         ctx.n = x.shape[0]
-        return _all_gather_rows(x, group)
+        return _all_gather_rows(x, group, counts)
 
     @staticmethod
     def backward(ctx, g):
-        return g[ctx.lo:ctx.lo + ctx.n], None
+        return g[ctx.lo:ctx.lo + ctx.n], None, None
 
 
 def _grad_path(x) -> bool:
@@ -113,16 +122,36 @@ def reduce_from_model(x, mesh):
     return x
 
 
-def gather_data(x, mesh):
+def gather_data(x, mesh, counts: Optional[List[int]] = None):
     """(n, ...) rows of every data rank, rank-major, as (dp n, ...); the
     backward returns this rank's slice of the gradient. Every data rank
-    must give the same n."""
+    gives the same n, or `counts` lists each data rank's n."""
     group = data_group(mesh)
     if group is None:
         return x
+    if counts is not None and counts[mesh.dp_rank] != x.shape[0]:
+        raise ValueError(f"{x.shape[0]} rows, counts {counts}")
     if _grad_path(x):
-        return _GatherData.apply(x, group)
-    return _all_gather_rows(x, group)
+        return _GatherData.apply(x, group, counts)
+    return _all_gather_rows(x, group, counts)
+
+
+def exchange_first_rows(x, mesh, send: bool, receive: bool):
+    """Every data rank's first row all-gathered over "data" (one
+    collective, every rank takes part); returns x without its first row
+    when `send` (it belongs to the rank before) and with the next data
+    rank's first row appended when `receive`. Without grad only (the
+    batch's inputs)."""
+    group = data_group(mesh)
+    if group is None:
+        return x
+    first = x[:1].contiguous()
+    parts = [torch.empty_like(first) for _ in range(mesh.dp)]
+    dist.all_gather(parts, first, group=group)
+    out = x[1:] if send else x
+    if receive:
+        out = torch.cat([out, parts[mesh.dp_rank + 1]])
+    return out
 
 
 @torch.no_grad()

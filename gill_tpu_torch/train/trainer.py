@@ -39,7 +39,12 @@ batch's (`gather_data`), and the accuracies count over the global batch.
 The adapters' gradients are summed over "data" (each rank's loss holds
 its shares and the whole contrastive term, whose gathered backward gives
 each rank its own rows' part), so clipping, AdamW, MultiSteps and the
-renorm then run identically on every rank. Under tensor parallelism the
+renorm then run identically on every rank. A concat-packed step packs the
+global batch's pairs (2i, 2i+1) as gill_tpu does; where a rank holds an
+odd count of rows, one pair spans two ranks, so the ranks first pass
+their boundary rows (`pair_rows`) and then hold whole pairs in unequal
+counts, which the means, the L2 share and the contrastive gathers weight
+by each rank's share of the global rows. Under tensor parallelism the
 LM's forward goes through the "model" collectives (models/opt.py), so
 activation gradients reach the adapters whole.
 """
@@ -48,7 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,8 +61,10 @@ import torch
 from gill_tpu_torch.config import TrainConfig
 from gill_tpu_torch.models.gill import GILLCore
 from gill_tpu_torch.nn.core import tree_leaves, tree_map
-from gill_tpu_torch.parallel.collectives import (data_group, gather_data,
-                                                 global_count, sum_over_data)
+from gill_tpu_torch.parallel.collectives import (data_group,
+                                                 exchange_first_rows,
+                                                 gather_data, global_count,
+                                                 sum_over_data)
 from gill_tpu_torch.train import losses as L
 
 BATCH_KEYS = ("pixels", "ret_tokens", "ret_len", "gen_tokens", "gen_len",
@@ -169,6 +176,30 @@ def apply_gradients(tc: TrainConfig, state: TrainState, grads,
         opt["mini_step"] = n + 1
 
 
+def pair_counts(n: int, dp: int) -> List[int]:
+    """Rows each data rank holds in a concat-packed step when each loads n
+    of the global batch's dp n: pair (2i, 2i+1) belongs to the rank that
+    loaded row 2i, so rank r holds rows [e(r n), e((r + 1) n)), e(k) = k
+    rounded up to even."""
+    def even(k):
+        return k + k % 2
+
+    return [even((r + 1) * n) - even(r * n) for r in range(dp)]
+
+
+def pair_rows(batch, mesh) -> Tuple[dict, List[int]]:
+    """This data rank's rows of whole pairs of the global batch, from its
+    loaded rows (n of them, odd): the first row goes to the rank before
+    where it is the second of a pair, and the next rank's first row is
+    appended where this rank's last row starts one. Returns the batch and
+    `pair_counts(n, dp)`. Every data rank calls it (a collective)."""
+    n, r = batch["pixels"].shape[0], mesh.dp_rank
+    send, receive = (r * n) % 2 == 1, ((r + 1) * n) % 2 == 1
+    out = {k: exchange_first_rows(v, mesh, send, receive)
+           for k, v in batch.items()}
+    return out, pair_counts(n, mesh.dp)
+
+
 def compute_losses(core: GILLCore, params, batch, tc: TrainConfig,
                    concat_captions: bool, prefix_ids=None
                    ) -> Tuple[torch.Tensor, Dict]:
@@ -178,9 +209,15 @@ def compute_losses(core: GILLCore, params, batch, tc: TrainConfig,
     reference main.py:675-720). Under data parallelism the returned loss
     is this rank's part (see the module docstring) and the metrics are the
     global batch's."""
-    pixels = batch["pixels"]
     mesh = core.mesh
     dp = 1 if data_group(mesh) is None else mesh.dp
+    counts = None
+    if concat_captions and dp > 1 and batch["pixels"].shape[0] % 2:
+        batch, counts = pair_rows(batch, mesh)
+    pixels = batch["pixels"]
+    # this rank's share of the global batch's rows
+    share = 1.0 / dp if counts is None else \
+        counts[mesh.dp_rank] / sum(counts)
     metrics: Dict = {}
 
     cap = core.forward(params, pixels, batch["ret_tokens"], batch["ret_len"],
@@ -204,8 +241,9 @@ def compute_losses(core: GILLCore, params, batch, tc: TrainConfig,
                        prefix_ids=prefix_ids, remat=tc.remat)
     ce_ret = ret["ce_loss"] * tc.ret_loss_scale * 0.5
     # the global batch's matrices (reference main.py:522-535)
-    logits_per_image = (gather_data(ret["visual_embs"], mesh)
-                        @ gather_data(ret["last_embedding"], mesh).t())
+    logits_per_image = (gather_data(ret["visual_embs"], mesh, counts)
+                        @ gather_data(ret["last_embedding"], mesh,
+                                      counts).t())
     logits_per_text = logits_per_image.t()
     cont = (L.contrastive_loss(logits_per_text)
             + L.contrastive_loss(logits_per_image)) / 2.0
@@ -229,13 +267,13 @@ def compute_losses(core: GILLCore, params, batch, tc: TrainConfig,
     clip_emb = batch["clip_emb"].to(mapped.dtype)
     if mapped.shape != clip_emb.shape:
         mapped = mapped.reshape(clip_emb.shape)
-    gen_l2 = L.l2_loss(clip_emb.float(), mapped.float()).mean() / dp \
+    gen_l2 = L.l2_loss(clip_emb.float(), mapped.float()).mean() * share \
         * tc.gen_loss_scale
     total = total + ce_gen + gen_l2
     metrics.update(gen_ce=ce_gen, gen_l2=gen_l2, loss=total)
     metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
     if dp > 1:
-        metrics = _global_metrics(metrics, tc, dp, mesh)
+        metrics = _global_metrics(metrics, tc, share, mesh)
     metrics["_viz"] = viz
     return total, metrics
 
@@ -244,16 +282,18 @@ _SHARES = ("cap_ce", "ret_ce", "gen_ce", "gen_l2")
 _MEANS = ("vis_norm_cap", "inp_norm", "vis_norm_ret")
 
 
-def _global_metrics(metrics, tc: TrainConfig, dp: int, mesh) -> Dict:
+def _global_metrics(metrics, tc: TrainConfig, share: float, mesh) -> Dict:
     """The global batch's metrics from this rank's: the loss shares summed
-    over "data" (one all-reduce), the per-rank means averaged, and the
-    total rebuilt from them in gill_tpu's order."""
+    over "data" (one all-reduce), the per-rank means weighted by each
+    rank's `share` of the rows, and the total rebuilt from them in
+    gill_tpu's order."""
     keys = _SHARES + _MEANS
-    vals = global_count(torch.stack([metrics[k].float() for k in keys]),
-                        mesh)
+    vals = global_count(torch.stack(
+        [metrics[k].float() * (share if k in _MEANS else 1.0)
+         for k in keys]), mesh)
     out = dict(metrics)
     for i, k in enumerate(keys):
-        out[k] = vals[i] / dp if k in _MEANS else vals[i]
+        out[k] = vals[i]
     out["loss"] = (out["cap_ce"] + out["ret_ce"]
                    + tc.ret_loss_scale * out["cont_loss"] + out["gen_ce"]
                    + out["gen_l2"])

@@ -329,3 +329,32 @@ def test_decode_step_through_the_dispatcher_matches_gill_tpu():
     np.testing.assert_allclose(tcache["k"].numpy(),
                                np.asarray(jout["cache"]["k"]), atol=1e-5,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,d", [(4, 64, 4, 32), (2, 48, 2, 128)])
+def test_library_call_computes_the_plain_version(dtype, b, s, h, d):
+    """chip_smoke's K6 library time (`decode_sdpa`: SDPA over the rows with
+    the own token appended and a boolean valid-prefix mask) computes the
+    kernel's function: within 2e-6 of the plain version in fp32, one bf16
+    ulp of the largest output in bf16, on a parked, a full and a strided
+    window of a larger pool."""
+    import chip_smoke
+
+    rng = np.random.RandomState(b * s + d)
+    q, _, _, k1, v1 = (torch.from_numpy(x).to(dtype)
+                       for x in _inputs(rng, b, s, h, d))
+    pool = torch.from_numpy(rng.randn(2, b, s + 16, h, d).astype(
+        np.float32)).to(dtype)
+    k, v = pool[0, :, :s], pool[1, :, :s]
+    lens = torch.from_numpy(rng.randint(0, s + 1, b).astype(np.int32))
+    lens[0], lens[-1] = 0, s
+    scale = d ** -0.5
+    want = tda.prefix_decode_attention_ref(q, k, v, lens, k1, v1,
+                                           scale=scale)
+    got = chip_smoke.decode_sdpa(torch, q, k, v, lens, k1, v1, scale)()
+    assert got.shape == want.shape == (b, 1, h, d) and got.dtype == dtype
+    tol = 2e-6 if dtype == torch.float32 else \
+        BF16_ULP * float(want.float().abs().max())
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               atol=tol, rtol=0)

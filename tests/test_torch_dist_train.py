@@ -8,6 +8,12 @@ rows. Two steps (concat off, then on): the loss, every metric and the
 adapters after each step within 1e-5 (rtol and atol), and the adapters
 bit for bit equal across ranks.
 
+At dp 2 the same rank group also packs a global batch of 6 (3 rows a
+rank, so pair (2, 3) spans the ranks): the ranks pass the boundary row
+and pack 4 and 2 rows, and the loss, every metric and the adapter
+gradients are held to gill_tpu's concat step on the global batch within
+1e-5.
+
 The batch is split so the two data ranks hold different counts of valid
 caption tokens: the global CE is a sum over the global batch's valid
 tokens over their global count, and a mean of the two ranks' own means
@@ -27,6 +33,7 @@ from gill_tpu.parallel.partition import batch_sharding, replicated
 from gill_tpu.train import trainer as jtrainer
 
 import torch_dist_cases as cases
+from gill_tpu_torch.train import trainer as ttrainer
 from test_torch_train_step import (OPT_TINY, TC, VIS_TINY, _flat,
                                    make_batch, make_cores)
 
@@ -57,13 +64,28 @@ def ref():
     jb = {k: jax.device_put(jnp.asarray(v), batch_sharding(mesh))
           for k, v in batch.items()}
     step = jtrainer.make_train_step(jc, tcj)
+    # the concat step's loss and adapter gradients on a global batch of 6
+    odd = make_batch(b=6, seed=5)
+    adapters = jax.tree_util.tree_map(jnp.asarray, params["adapters"])
+
+    def loss_fn(a):
+        return jtrainer.compute_losses(jc, {**frozen, "adapters": a},
+                                       ob, tcj, True)
+
+    ob = {k: jax.device_put(jnp.asarray(v), batch_sharding(mesh))
+          for k, v in odd.items()}
+    (_, om), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        adapters)
+    om = {k: np.asarray(v, np.float32) for k, v in jax.device_get(om).items()
+          if k != "_viz"}
     runs = []
     for concat in CONCAT:
         state, m = step(state, frozen, jb, concat=concat)
         m = jax.device_get(m)
         runs.append(({k: np.asarray(v, np.float32) for k, v in m.items()
                       if k != "_viz"}, _flat(state.adapters)))
-    return {"params": params, "batch": batch, "runs": runs, "jc": jc}
+    return {"params": params, "batch": batch, "runs": runs, "jc": jc,
+            "odd_batch": odd, "odd": (om, _flat(grads))}
 
 
 @pytest.mark.parametrize("dp,tp", [(2, 1), (1, 2), (2, 2)])
@@ -72,7 +94,8 @@ def test_train_steps_match_gill_tpu_global_batch(ref, tmp_path, dp, tp):
     assert lens[:4].sum() != lens[4:].sum()   # ragged valid-token counts
     res = cases.run("train_steps", dp * tp, tmp_path, core_kw=CORE_KW,
                     tc_kw=TC, seed=0, batch=ref["batch"],
-                    concat_seq=CONCAT, dp=dp, tp=tp)
+                    concat_seq=CONCAT, dp=dp, tp=tp,
+                    odd_batch=ref["odd_batch"] if dp == 2 else None)
     for r, out in enumerate(res):
         assert out["adapters_equal_across_ranks"]
         for i, ((gm, ga), (wm, wa)) in enumerate(zip(out["runs"],
@@ -89,6 +112,21 @@ def test_train_steps_match_gill_tpu_global_batch(ref, tmp_path, dp, tp):
                 np.testing.assert_allclose(ga[k], wa[k], rtol=TOL, atol=TOL,
                                            err_msg=f"step {i} {k}")
     if dp == 2:
+        # the packed batch of 6: ranks hold 4 and 2 rows, each rank's
+        # metrics are the global step's, the summed gradients gill_tpu's
+        assert ttrainer.pair_counts(3, 2) == [4, 2]
+        wm, wg = ref["odd"]
+        for r in range(dp * tp):
+            gm, gg = res[r]["odd"]
+            assert set(gm) == set(wm), (sorted(gm), sorted(wm))
+            for k in wm:
+                np.testing.assert_allclose(gm[k], wm[k], rtol=TOL, atol=TOL,
+                                           err_msg=f"packed {k}")
+            gg = _flat(gg)
+            assert set(gg) == set(wg)
+            for k in wg:
+                np.testing.assert_allclose(gg[k], wg[k], rtol=TOL, atol=TOL,
+                                           err_msg=f"packed grad {k}")
         # the first step's caption CE (before the update) is the global
         # mean; the mean of the data ranks' own means is not
         cap = float(ref["runs"][0][0]["cap_ce"])

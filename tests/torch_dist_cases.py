@@ -20,7 +20,7 @@ import torch.distributed as dist
 
 from gill_tpu_torch import config as tcfg
 from gill_tpu_torch.models.gill import GILLCore
-from gill_tpu_torch.nn.core import tree_leaves
+from gill_tpu_torch.nn.core import tree_leaves, tree_map
 from gill_tpu_torch.parallel import create_mesh
 from gill_tpu_torch.parallel import collectives as C
 from gill_tpu_torch.parallel import partition as P
@@ -204,14 +204,32 @@ def _metrics_np(m):
     return out
 
 
+def _packed_loss_and_grads(core, tc, frozen, adapters, batch):
+    """The concat-packed step's loss, metrics and adapter gradients
+    (summed over "data") on this rank's rows, before any update."""
+    from gill_tpu_torch.parallel.collectives import sum_over_data
+    from gill_tpu_torch.train import trainer as T
+
+    params = {**frozen, "adapters": adapters}
+    with torch.enable_grad():
+        loss, m = T.compute_losses(core, params, batch, tc, True)
+        leaves = tree_leaves(adapters)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = iter(sum_over_data([torch.zeros_like(p) if g is None else g
+                                for p, g in zip(leaves, grads)], core.mesh))
+    return _metrics_np(m), _np(tree_map(lambda _: next(grads), adapters))
+
+
 def train_steps(core_kw, tc_kw, seed: int, batch, concat_seq, dp: int,
-                tp: int):
+                tp: int, odd_batch=None):
     """The train step at mesh (dp, tp), each rank on its data rows of the
     global batch: every step's metrics and adapters, this rank's own
     caption CE mean before the first step (what a mean of per-rank means
     would average), and whether the adapters agree bit for bit across
     every rank. Rank 0 alone returns the adapters (the others hold the
-    same bits)."""
+    same bits). With `odd_batch` (a global batch whose rows split into
+    an odd count a rank) also its concat-packed metrics and adapter
+    gradients (`odd`)."""
     from gill_tpu_torch.models import opt as opt_mod
     from gill_tpu_torch.train import trainer as T
 
@@ -229,6 +247,11 @@ def train_steps(core_kw, tc_kw, seed: int, batch, concat_seq, dp: int,
             {**full, "adapters": state.adapters}, local["pixels"],
             local["ret_tokens"], local["ret_len"], mode="captioning")
         own_mean = float(opt_mod.loss_fn(cap["logits"], cap["full_labels"]))
+    odd = None
+    if odd_batch is not None:
+        odd = _packed_loss_and_grads(
+            core, tc, frozen, T.init_state(tc, state.adapters).adapters,
+            T.put_batch(P.split_batch(odd_batch, mesh), "cpu"))
     step = T.make_train_step(core, tc)
     runs = []
     for concat in concat_seq:
@@ -237,7 +260,7 @@ def train_steps(core_kw, tc_kw, seed: int, batch, concat_seq, dp: int,
                      if mesh.rank == 0 else None))
     flat = torch.cat([x.detach().reshape(-1)
                       for x in tree_leaves(state.adapters)])
-    return {"runs": runs, "own_cap_ce": own_mean,
+    return {"runs": runs, "own_cap_ce": own_mean, "odd": odd,
             "adapters_equal_across_ranks": C.all_equal(flat)}
 
 
