@@ -57,7 +57,15 @@
        on the text route, then 2 with gen_scale_factor=1e6 through the tap
        ring, retrieval, the decision MLP, GILLMapper, SD and the re-rank;
    (C) `DecodeEngine(kv_dtype=torch.int8)` on 16 requests of the trace
-       (the plain int8 decode path).
+       (the plain int8 decode path);
+   (P) the serving probes' measuring functions (profile_serve,
+       profile_gill_serve, profile_serve_sched, profile_prefix,
+       profile_chat_extend, profile_decode, profile_opt67,
+       profile_serve_prefix_decode) on that W8 LM and the W8 GILL around
+       it, repetitions and traces cut (`serving_probes`): each prints its
+       rows; the prefix run's, the incremental chat turns' and K6's tokens
+       must equal the plain run's, the cold turns' and the plain decode
+       path's; K4 and K6 must launch there.
    Every path is driven with the launch counts set to 0 just before and
    read just after; each kernel of a path must have launched in it.
 6. SD modes (slice 3), phase D, on the same SD v1.5 weights:
@@ -83,8 +91,10 @@
    calls bit for bit), then every probe of gill_tpu_torch/scripts/ once at
    its default shapes with its repetitions cut, printing its rows (attn_mxu_
    probe, attn_sweep, int8_probe, profile_sd, profile_sd_ablate,
-   profile_ln_fuse, profile_prefix_decode, w8_probe, profile_specdec);
-   S1-S3 and K4 must launch there and no probe row may fail.
+   profile_ln_fuse, profile_prefix_decode, w8_probe, profile_specdec, and
+   the block probes flash_blockk_probe, K2 at every tile at B 8, and
+   attn_pack_probe); S1-S3, K4 and K2 must launch there and no probe row
+   may fail.
 8. Online serving (slice 11), phase F, on phase A's engine and tokens
    (`serve/online.py` OnlineEngine): (F1) the 48 requests from 4 threads
    at once; (F2) the same requests with exponential gaps at half the
@@ -164,7 +174,16 @@
    and plans (K1 at h16 d128 causal, K6 at 16 heads for the rank's
    pool); then 8 of the 32 layers in fp32, every token equal to tp 1's,
    and a registered prefix reused; then a world of 1 on NCCL through the
-   mesh code path, tokens equal to the plain engine's. (I2) the train step
+   mesh code path, tokens equal to the plain engine's. (I4) inside I1's
+   ranks: the tp-2 bf16 engine behind `OnlineEngine` (rank 0 the leader,
+   rank 1 following its ticks), the same 16 requests arriving at I4_RATE
+   a second with one cancelled while queued and one in flight: every
+   other request's tokens equal to that engine's run_pipelined tokens,
+   the cancelled ones prefixes of them, K1 and K6 launched on each rank,
+   every follower's counters rank 0's; time to first token p50 / p99 and
+   tokens/s; then `GillOnlineEngine` over a tp-2 `GillDecodeEngine` on
+   the 8-layer fp32 tree with random [IMG] rows and I4_GILL embedding
+   prompts, tokens equal to tp 1's `GillDecodeEngine.run`. (I2) the train step
    at full width on a global batch of 16, in one process, then at dp 2 (8
    rows a rank, unequal valid-token counts) and at tp 2: the loss within
    I_LOSS_RTOL, every adapter gradient at cosine >= I_GRAD_COS and its
@@ -1150,15 +1169,10 @@ def check_against_plain(torch, dev, model, req_a, out_a, prompt_b, report):
 
 def serve_trace(n: int, seed: int = 7):
     """bench.py bench_serve's trace: prompt lengths U[16,240] of random ids,
-    generation lengths U[16,192]."""
-    import numpy as np
+    generation lengths U[16,192] (the serving probes' `_serving`)."""
+    from gill_tpu_torch.scripts._serving import serve_trace as trace
 
-    from gill_tpu_torch.serve.engine import ServeRequest
-
-    rng = np.random.RandomState(seed)
-    return [ServeRequest(
-        uid=i, prompt=rng.randint(2, 1000, size=int(rng.randint(16, 241)))
-        .tolist(), max_new_tokens=int(rng.randint(16, 193))) for i in range(n)]
+    return trace(n, seed)
 
 
 def timed(torch, fn):
@@ -1384,6 +1398,71 @@ def phase_c(torch, lm8, cfg, failures):
     return rep
 
 
+def serving_probes(torch, w8_model, failures):
+    """The serving probes' measuring functions on phase A's W8 OPT-6.7B
+    (the GILL ones on the W8 GILL around it), repetitions and traces cut:
+    one chunk size (32), 16 requests where an original takes 48 (32 new
+    tokens each for profile_prefix), three chat turns in one pass, 8
+    decode steps for the ablations and the trace, and the plain decode
+    path on the trace's first 16 requests with budgets capped at 64 (as
+    phase A's plain comparison). The launch counts are set to 0 before the
+    probes and read after: K4 and K6 must launch; a row with "failed" or a
+    value that is not finite fails the run."""
+    from gill_tpu_torch.scripts import (profile_chat_extend, profile_decode,
+                                        profile_gill_serve, profile_opt67,
+                                        profile_prefix, profile_serve,
+                                        profile_serve_prefix_decode,
+                                        profile_serve_sched)
+
+    lm8, core, gp = w8_model.params["lm"], w8_model.core, w8_model.params
+    cfg = core.opt_cfg
+    mixed = serve_trace(48)[:16]
+    for r in mixed:
+        r.max_new_tokens = min(r.max_new_tokens, 64)
+    probes = [
+        ("profile_serve", lambda: profile_serve.probe(
+            model=cfg, params=lm8, n_chunk=2, n_prefill=1, n_round_trip=5)),
+        ("profile_gill_serve", lambda: profile_gill_serve.probe(
+            model=cfg, core=core, params=gp, n_chunk=2, n_wave=1)),
+        ("profile_serve_sched", lambda: profile_serve_sched.probe(
+            model=cfg, params=lm8, chunks=(32,), nreq=16, depths=(2,))),
+        ("profile_prefix", lambda: profile_prefix.probe(
+            model=cfg, params=lm8, nreq=16, new=32)),
+        ("profile_chat_extend", lambda: profile_chat_extend.probe(
+            model=cfg, core=core, params=gp, turns=3, passes=1)),
+        ("profile_decode", lambda: profile_decode.probe(
+            model=cfg, params=lm8, gen=8)),
+        ("profile_opt67", lambda: profile_opt67.probe(model=cfg,
+                                                      params=lm8, gen=8)),
+        ("profile_serve_prefix_decode",
+         lambda: profile_serve_prefix_decode.probe(
+             model=cfg, params=lm8, traces={"mixed": mixed}))]
+    rep = {}
+    zero_launches()
+    for name, run in probes:
+        t0 = time.perf_counter()
+        log(f"serving probe {name}:")
+        out = run()
+        rep[f"{name}_s"] = time.perf_counter() - t0
+        rep[name] = [{k: v for k, v in r.items() if k != "tokens"}
+                     for r in out]
+        bad = [r for r in rep[name] if "failed" in r]
+        if not out or bad:
+            failures.append(f"serving probe {name}: {len(out)} rows, "
+                            f"failed: {bad}")
+        nums = [v for r in out for v in r.values() if isinstance(v, float)]
+        if not all(math.isfinite(v) for v in nums):
+            failures.append(f"serving probe {name} printed a value that is "
+                            f"not finite")
+        torch.cuda.empty_cache()
+    rep["launches"] = read_launches()
+    for name in ("w8_matmul", "prefix_decode_attention"):
+        if rep["launches"][name] <= 0:
+            failures.append(f"{name} was not launched in the serving probes")
+    rep["device"] = smi_line()
+    return rep
+
+
 def serving(torch, dev, model, prompt_b):
     from gill_tpu_torch.api import GILL
 
@@ -1410,6 +1489,10 @@ def serving(torch, dev, model, prompt_b):
     log("serving phase B:", json.dumps(report["B"]))
     report["C"] = phase_c(torch, lm8, cfg, failures)
     log("serving phase C:", json.dumps(report["C"]))
+    t0 = time.perf_counter()
+    report["P"] = serving_probes(torch, w8_model, failures)
+    report["P"]["phase_s"] = time.perf_counter() - t0
+    log("serving probes phase P:", json.dumps(report["P"]))
     t0 = time.perf_counter()
     report["F"]["F5"] = f5_gill(torch, dev, model, failures)
     report["F"]["F5"]["phase_s"] = time.perf_counter() - t0
@@ -3508,7 +3591,8 @@ def phase_e(torch, dev):
     with its repetitions cut (it prints its rows). The launch counts are set
     to 0 just before the probes and read just after: S1-S3 must have
     launched there. Returns (kernel rows, report, failures)."""
-    from gill_tpu_torch.scripts import (attn_mxu_probe, attn_sweep,
+    from gill_tpu_torch.scripts import (attn_mxu_probe, attn_pack_probe,
+                                        attn_sweep, flash_blockk_probe,
                                         int8_probe, profile_ln_fuse,
                                         profile_prefix_decode, profile_sd,
                                         profile_sd_ablate, profile_specdec,
@@ -3535,7 +3619,11 @@ def phase_e(torch, dev):
                   device="cuda", n_lo=2, n_hi=6)),
               ("w8_probe", lambda: w8_probe.probe(device="cuda", reps=12)),
               ("profile_specdec", lambda: profile_specdec.probe(
-                  device="cuda", rounds=(1, 3), steps=(4, 12)))]
+                  device="cuda", rounds=(1, 3), steps=(4, 12))),
+              ("flash_blockk_probe", lambda: flash_blockk_probe.probe(
+                  device="cuda", n1=1, n2=3)),
+              ("attn_pack_probe", lambda: attn_pack_probe.probe(
+                  device="cuda", n_lo=1, n_hi=3))]
     zero_launches()
     for name, run in probes:
         t0 = time.perf_counter()
@@ -3562,7 +3650,8 @@ def phase_e(torch, dev):
                                 f"bf16 ulps from K2's output")
         torch.cuda.empty_cache()
     rep["launches"] = launches = read_launches()
-    for name in ("mm_probe", "flash_variant", "flash_nomax", "w8_matmul"):
+    for name in ("mm_probe", "flash_variant", "flash_nomax", "w8_matmul",
+                 "flash_mma"):
         if launches[name] <= 0:
             failures.append(f"{name} was not launched in phase E's probes")
     return rows, rep, failures
@@ -4072,7 +4161,12 @@ I_LOSS_RTOL, I_GRAD_COS, I_BATCH = 1e-3, 0.99, 16
 I_GRAD_COS_FP32, I_CONTROL_LAYERS = 0.9999, 4
 I_GRAD_NORM_REL, I_GRAD_NORM_REL_FP32 = 0.1, 1e-4
 I_INDEX_ROWS = 2_900_000
-I_GROUP_TIMEOUT, I_PG_TIMEOUT = 420.0, 300.0
+I_GROUP_TIMEOUT, I_PG_TIMEOUT = 600.0, 300.0
+# I4: the tp-2 engine online, the trace's first I_REQS requests arriving at
+# I4_RATE a second (exponential gaps from I4_SEED), one cancelled while
+# queued and one in flight; then a GILL engine on the fp32 tree, I4_GILL
+# embedding prompts
+I4_RATE, I4_SEED, I4_GILL = 8.0, 11, 6
 # where the rank functions live and run (a CPU rehearsal at tiny widths
 # points these elsewhere)
 I_MODULE, I_DEVICE, I_CLI_EXTRA = "chip_smoke", "cuda", ()
@@ -4131,11 +4225,12 @@ def _i_prefix_tokens():
     return np.random.RandomState(3).randint(2, 1000, size=48).tolist()
 
 
-def _i_serve(torch, params, cfg, dtype, mesh, device=None):
+def _i_serve(torch, params, cfg, dtype, mesh, device=None, online=None):
     """DecodeEngine over the trace (run_pipelined), a teacher-forced prefill
     of the first two prompts, and for fp32 a prefix registered and reused:
     tokens, hidden states, tokens/s and launches. `device`: the engine's,
-    for a tree on the host."""
+    for a tree on the host. `online(eng, rep)`: a report of the same engine
+    served online after that (phase I4), under rep["online"]."""
     import numpy as np
 
     from gill_tpu_torch.models import opt as opt_mod
@@ -4178,6 +4273,8 @@ def _i_serve(torch, params, cfg, dtype, mesh, device=None):
         rep["prefix_launches"] = read_launches()
         rep["prefix_tokens"] = {u: pout[u] for u in sorted(pout)}
         rep["prefix_hits"] = eng.stats["prefix_hits"]
+    if online is not None:
+        rep["online"] = online(eng, rep)
     del eng
     torch.cuda.empty_cache()
     return rep
@@ -4210,11 +4307,149 @@ def _i_gates(torch, heads: int, head_dim: int, failures):
     return rep
 
 
+def _i4_lm_online(torch, eng, served):
+    """I4 on one rank: I1's tp-2 bf16 engine behind OnlineEngine. Rank 0
+    submits the trace's requests at I4_RATE a second, cancels one right
+    after its submit (queued: the scheduler is inside a chunk then) and one
+    once its first token has streamed (in flight); every other rank
+    follows rank 0's ticks. Rank 0 reports its handles' tokens against the
+    engine's own run_pipelined tokens (`served`), time to first token and
+    tokens/s; every rank its launches and engine counters."""
+    import threading
+
+    import numpy as np
+
+    from gill_tpu_torch.serve.online import OnlineEngine
+
+    torch.cuda.synchronize()
+    zero_launches()
+    online = OnlineEngine(eng)
+    rep = {"leader": online.leader}
+    if not online.leader:
+        online.wait_closed()
+        rep["launches"] = read_launches()
+        rep["stats"] = dict(eng.stats)
+        return rep
+    want = served["tokens"]
+    reqs = _i_requests()
+    arrivals = np.cumsum(np.random.RandomState(I4_SEED).exponential(
+        1 / I4_RATE, size=len(reqs)))
+    queued = reqs[len(reqs) // 2].uid
+    flight = max(reqs[:4], key=lambda r: r.max_new_tokens).uid
+    handles, slog = {}, StreamLog()
+
+    def cancel_after_first_token(h):
+        while not h.tokens and not h.done.is_set():
+            time.sleep(0.002)
+        h.cancel()
+
+    t0 = time.perf_counter()
+    for r, at in zip(reqs, arrivals):
+        delay = t0 + float(at) - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        t = time.perf_counter()
+        handles[r.uid] = h = online.submit(r.prompt, r.max_new_tokens)
+        if r.uid == queued:
+            h.cancel()
+            continue
+        slog.watch(r.uid, h, t)
+        if r.uid == flight:
+            canceller = threading.Thread(target=cancel_after_first_token,
+                                         args=(h,), daemon=True)
+            canceller.start()
+    canceller.join(600)
+    got = {u: hh.result(timeout=600) for u, hh in handles.items()}
+    rep["wall_s"] = time.perf_counter() - t0
+    slog.join(60)
+    online.close()
+    rep["launches"] = read_launches()
+    rep["stats"] = dict(eng.stats)
+    ttft, _ = slog.latencies()
+    rep["ttft_ms"] = {"p50": 1e3 * pct(ttft, 50), "p99": 1e3 * pct(ttft, 99)}
+    rep["tokens_per_s"] = sum(len(v) for v in got.values()) / rep["wall_s"]
+    rest = [u for u in got if u not in (queued, flight)]
+    rep["uncancelled_equal"] = sum(got[u] == want[u] for u in rest)
+    rep["uncancelled"] = len(rest)
+    rep["first_divergence"] = {u: first_diff(got[u], want[u]) for u in rest
+                               if got[u] != want[u]}
+    for name, u in (("queued", queued), ("in_flight", flight)):
+        rep[name] = {"uid": u, "tokens": len(got[u]),
+                     "budget": len(want[u]),
+                     "prefix_of_served": got[u] == want[u][:len(got[u])]}
+    return rep
+
+
+def _i4_gill(torch, lm, cfg, dev, mesh=None):
+    """I4's GILL engine on the 8-layer fp32 tree `lm`: the table's last 8
+    rows are the [IMG] rows, their embeddings drawn from I_SEED + 2 on the
+    card (the same bits on every rank), I4_GILL embedding prompts from
+    RandomState(I_SEED), every other one with the [IMG] logit boosted.
+    Without `mesh`: GillDecodeEngine.run, the tp-1 reference; with it:
+    GillOnlineEngine over GillDecodeEngine(mesh=), rank 0 submitting
+    every prompt and every other rank following. Returns {uid: tokens} and
+    the [IMG] taps (rank 0, or the reference)."""
+    import numpy as np
+
+    from gill_tpu_torch.config import CLIPVisionConfig, GILLConfig
+    from gill_tpu_torch.models.gill import GILLCore
+    from gill_tpu_torch.serve.gill_engine import (GillDecodeEngine,
+                                                  GillServeRequest)
+    from gill_tpu_torch.serve.online import GillOnlineEngine
+
+    nt = 8
+    core = GILLCore(cfg=GILLConfig(num_tokens=nt), opt_cfg=cfg,
+                    vis_cfg=CLIPVisionConfig(hidden_size=32,
+                                             intermediate_size=64,
+                                             num_layers=1, num_heads=2,
+                                             image_size=32, patch_size=16),
+                    vocab_len=cfg.vocab_size, img_start=cfg.vocab_size - nt,
+                    pad_token_id=1, bos_token_id=2)
+    g = torch.Generator(dev).manual_seed(I_SEED + 2)
+    img = (torch.randn((nt, cfg.word_embed_proj_dim), device=dev, generator=g)
+           * 0.02).to(lm["embed_tokens"]["weight"].device)
+    params = {"lm": lm, "adapters": {"img_embeddings": img}}
+    rng = np.random.RandomState(I_SEED)
+    cases = [dict(embs=(rng.randn(int(rng.randint(16, 120)),
+                                  cfg.word_embed_proj_dim) * 0.02)
+                  .astype(np.float32), num_words=16,
+                  img_scale=100.0 if i % 2 == 0 else 1.0)
+             for i in range(I4_GILL)]
+    eng = GillDecodeEngine(core, params, slots=8, max_seq=256, chunk=16,
+                           prefill_buckets=(64, 128), kv_dtype=torch.float32,
+                           mesh=mesh, device=dev if mesh else None)
+    rep = {"img_start": core.img_start}
+    t0 = time.perf_counter()
+    if mesh is None:
+        out = eng.run([GillServeRequest(uid=u, **c)
+                       for u, c in enumerate(cases)])
+        rep["tokens"] = {u: out[u]["tokens"] for u in out}
+        rep["img_runs"] = {u: out[u]["img_runs"] for u in out}
+    else:
+        online = GillOnlineEngine(eng)
+        rep["leader"] = online.leader
+        if online.leader:
+            hs = [online.submit(c["embs"], c["num_words"],
+                                img_scale=c["img_scale"]) for c in cases]
+            rep["tokens"] = {u: h.result(timeout=600)
+                             for u, h in enumerate(hs)}
+            rep["img_runs"] = {u: h.img_runs for u, h in enumerate(hs)}
+            online.close()
+        else:
+            online.wait_closed()
+        rep["stats"] = dict(eng.stats)
+    rep["s"] = time.perf_counter() - t0
+    del eng
+    torch.cuda.empty_cache()
+    return rep
+
+
 def i1_rank(workdir: str):
     """One rank of the tp = world group: OPT-6.7B bf16 served over the trace
-    with the teacher-forced prefill, then 8 of 32 layers in fp32 with a
-    prefix; each built whole on the host from the seed's draws, the engine
-    moving only this rank's shard to the card."""
+    with the teacher-forced prefill, then online (I4); then 8 of 32 layers
+    in fp32 with a prefix, and a GILL engine on them online (I4); each
+    built whole on the host from the seed's draws, the engine moving only
+    this rank's shard to the card."""
     import torch
 
     from gill_tpu_torch.parallel import create_mesh
@@ -4230,13 +4465,16 @@ def i1_rank(workdir: str):
     rep["host_tree_s"] = time.perf_counter() - t0
     rep["gates"] = _i_gates(torch, cfg.num_heads // mesh.tp, cfg.head_dim,
                             failures)
-    rep["bf16"] = _i_serve(torch, params, cfg, torch.bfloat16, mesh, dev)
+    rep["bf16"] = _i_serve(torch, params, cfg, torch.bfloat16, mesh, dev,
+                           online=lambda eng, served: _i4_lm_online(
+                               torch, eng, served))
     del params
     torch.cuda.empty_cache()
     rep["bf16_max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     params, cfg = _i_opt(torch, dev, torch.float32, I_FP32_LAYERS,
                          I_SEED + 1, host=True)
     rep["fp32"] = _i_serve(torch, params, cfg, torch.float32, mesh, dev)
+    rep["i4_gill"] = _i4_gill(torch, params, cfg, dev, mesh)
     del params
     torch.cuda.empty_cache()
     rep["failures"] = failures
@@ -4276,6 +4514,60 @@ def _i_cmp_tokens(got: dict, want: dict) -> dict:
             "share_equal": same / len(want), "first_divergence": first}
 
 
+def _i4_report(ranks, gill1, failures) -> dict:
+    """Phase I4's checks and printed figures from the I1 ranks' reports:
+    rank 0's uncancelled tokens equal to the engine's run_pipelined ones,
+    the cancelled ones prefixes of them (the in-flight one shorter), K1
+    and K6 launched on every rank, every follower's engine counters equal
+    to rank 0's, and the tp-2 GILL tokens equal to tp 1's."""
+    lead = ranks[0]["bf16"]["online"]
+    g = ranks[0]["i4_gill"]
+    rep = {"ttft_ms": lead["ttft_ms"], "tokens_per_s": lead["tokens_per_s"],
+           "wall_s": lead["wall_s"], "uncancelled_equal":
+           f"{lead['uncancelled_equal']}/{lead['uncancelled']}",
+           "first_divergence": lead["first_divergence"],
+           "queued": lead["queued"], "in_flight": lead["in_flight"],
+           "k1_launches_per_rank": [r["bf16"]["online"]["launches"][
+               "flash_attention"] for r in ranks],
+           "k6_launches_per_rank": [r["bf16"]["online"]["launches"][
+               "prefix_decode_attention"] for r in ranks],
+           "gill_tp2_s": g["s"], "gill_tp1_s": gill1["s"],
+           "gill_tokens_equal_tp1": sum(
+               g["tokens"][u] == gill1["tokens"][u] for u in gill1["tokens"]),
+           "gill_requests": len(gill1["tokens"]),
+           "gill_img_runs_max_abs_vs_tp1": max(
+               float(abs(g["img_runs"][u] - gill1["img_runs"][u]).max())
+               for u in gill1["tokens"]),
+           "gill_requests_with_img": sum(
+               1 for t in gill1["tokens"].values()
+               if any(x >= gill1["img_start"] for x in t))}
+    if lead["uncancelled_equal"] != lead["uncancelled"]:
+        failures.append(f"I4: online tokens differ from run_pipelined's: "
+                        f"{lead['first_divergence']}")
+    if not lead["queued"]["prefix_of_served"] or \
+            not lead["in_flight"]["prefix_of_served"] or \
+            lead["in_flight"]["tokens"] >= lead["in_flight"]["budget"]:
+        failures.append(f"I4: cancels {lead['queued']}, "
+                        f"{lead['in_flight']}")
+    for r, out in enumerate(ranks):
+        o = out["bf16"]["online"]
+        for k in ("flash_attention", "prefix_decode_attention"):
+            if o["launches"][k] <= 0:
+                failures.append(f"I4 rank {r}: {k} not launched online")
+        for key in ("chunks", "prefills", "decode_steps", "kv_rows_read"):
+            if o["stats"][key] != lead["stats"][key]:
+                failures.append(f"I4 rank {r}: {key} {o['stats'][key]} "
+                                f"against rank 0's {lead['stats'][key]}")
+        if out["i4_gill"]["stats"]["chunks"] != g["stats"]["chunks"]:
+            failures.append(f"I4 rank {r}: the GILL engine's chunks differ")
+    if rep["gill_tokens_equal_tp1"] != rep["gill_requests"]:
+        failures.append(f"I4: tp-2 GILL tokens equal tp 1's for only "
+                        f"{rep['gill_tokens_equal_tp1']} of "
+                        f"{rep['gill_requests']}")
+    log("phase I4:", json.dumps(rep, default=str))
+    return rep
+
+
 def phase_i1(torch, dev, tmp, failures):
     from gill_tpu_torch.parallel.launch import run_ranks
 
@@ -4290,6 +4582,7 @@ def phase_i1(torch, dev, tmp, failures):
     params, cfg = _i_opt(torch, dev, torch.float32, I_FP32_LAYERS,
                          I_SEED + 1)
     ref32 = _i_serve(torch, params, cfg, torch.float32, None)
+    gill1 = _i4_gill(torch, params, cfg, dev)
     del params
     torch.cuda.empty_cache()
     rep["tp1_s"] = time.perf_counter() - t0
@@ -4354,6 +4647,7 @@ def phase_i1(torch, dev, tmp, failures):
     if ranks[0]["bf16"]["tokens"] != ranks[1]["bf16"]["tokens"]:
         failures.append("I1: the two tp ranks' tokens differ")
     rep["tp2"] = per
+    rep["i4"] = _i4_report(ranks, gill1, failures)
     rep["tp2_vs_tp1_tokens_per_s"] = (per[0]["bf16_tokens_per_s"]
                                       / ref16["tokens_per_s"])
 
@@ -5136,6 +5430,15 @@ def main() -> int:
         per_rank = _phase_i_launches(i_report, name)
         if per_rank is not None:
             row["phase_i_launches_per_rank"] = per_rank
+        # the serving probes (P), phase E's probes (the block probes: K2),
+        # and each rank's in phase I4's online tp-2 serving (K1, K6)
+        row["serving_probe_launches"] = serve_report["P"]["launches"][name]
+        row["phase_e_launches"] = e_report["launches"][name]
+        i4 = i_report.get("i1", {}).get("i4", {})
+        key = {"flash_attention": "k1_launches_per_rank",
+               "prefix_decode_attention": "k6_launches_per_rank"}.get(name)
+        if key in i4:
+            row["phase_i4_launches_per_rank"] = i4[key]
     log(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s")
     if failures:
         for f in failures:

@@ -36,6 +36,7 @@ main.py in these ways:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -226,7 +227,7 @@ def main(argv) -> str:
     from gill_tpu_torch.data.dataset import DataLoader, get_dataset
     from gill_tpu_torch.models import opt as opt_mod
     from gill_tpu_torch.models.gill import GILLCore
-    from gill_tpu_torch.nn.core import Init, tree_leaves, tree_map
+    from gill_tpu_torch.nn.core import Init, cast_tree, param_count
     from gill_tpu_torch.parallel import create_mesh, init_distributed
     from gill_tpu_torch.parallel.collectives import broadcast_str
     from gill_tpu_torch.parallel.mesh import launched
@@ -234,6 +235,7 @@ def main(argv) -> str:
     from gill_tpu_torch.train import trainer as trainer_mod
     from gill_tpu_torch.train import validate as validate_mod
     from gill_tpu_torch.utils import ckpt as ckpt_utils
+    from gill_tpu_torch.utils import profiling
     from gill_tpu_torch.utils.meters import AverageMeter, ProgressMeter
     from gill_tpu_torch.utils.tb import SummaryWriter
     from gill_tpu_torch.weights import loader as wloader
@@ -315,12 +317,11 @@ def main(argv) -> str:
                                           args.weights_dir, seed + 1,
                                           device=dev, dtype=dtype)
         if args.frozen_lm_precision == "w8":
-            lm = opt_mod.quantize_params_w8(
-                tree_map(lambda x: x.to(torch.bfloat16), lm))
+            lm = opt_mod.quantize_params_w8(cast_tree(lm, torch.bfloat16))
         elif args.frozen_lm_precision in ("bf16", "fp32"):
             lm_dtype = (torch.bfloat16 if args.frozen_lm_precision == "bf16"
                         else torch.float32)
-            lm = tree_map(lambda x: x.to(lm_dtype), lm)
+            lm = cast_tree(lm, lm_dtype)
         frozen = {"lm": lm, "vision": vision}
         del lm, vision
         if tp > 1:
@@ -331,11 +332,8 @@ def main(argv) -> str:
         adapters = replicated(core.init_adapters(Init(g, dev, torch.float32)),
                               mesh)
 
-    def count(tree):
-        return sum(x.numel() for x in tree_leaves(tree) if torch.is_tensor(x))
-
-    report = (f"Trainable params: {count(adapters):,}\n"
-              f"Frozen params:   {count(frozen):,}\n")
+    report = (f"Trainable params: {param_count(adapters):,}\n"
+              f"Frozen params:   {param_count(frozen):,}\n")
     print(report, flush=True)
     if rank0:
         with open(os.path.join(log_dir, "param_count.txt"), "w") as f:
@@ -388,10 +386,6 @@ def main(argv) -> str:
             max_steps=tc.val_steps_per_epoch, decode_captions=True,
             device=dev, pixel_dtype=dtype)
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
     try:
         if args.evaluate:
             run_validate(args.start_epoch)
@@ -438,11 +432,10 @@ def main(argv) -> str:
                 run_step = ((epoch - args.start_epoch) * tc.steps_per_epoch
                             + i + 1)
                 if args.profile_steps and run_step == 2:
-                    acts = [torch.profiler.ProfilerActivity.CPU]
-                    if dev.type == "cuda":
-                        acts.append(torch.profiler.ProfilerActivity.CUDA)
-                    prof = torch.profiler.profile(activities=acts)
-                    prof.start()
+                    prof = contextlib.ExitStack()
+                    prof.enter_context(profiling.trace(
+                        os.path.join(log_dir, "trace"),
+                        cuda=dev.type == "cuda"))
                 state, metrics = step_fn(
                     state, frozen,
                     trainer_mod.put_batch(batch, dev, dtype), concat=concat)
@@ -451,12 +444,7 @@ def main(argv) -> str:
                     k: msum[k] + v for k, v in metrics.items()}
                 mcount += 1
                 if prof is not None and run_step == 1 + args.profile_steps:
-                    sync()
-                    prof.stop()
-                    os.makedirs(os.path.join(log_dir, "trace"),
-                                exist_ok=True)
-                    prof.export_chrome_trace(
-                        os.path.join(log_dir, "trace", "trace.json"))
+                    prof.close()           # waits for the device, writes
                     prof = None
                 if actual_step == 1 or (i + 1) % tc.print_freq == 0:
                     if writer is not None:

@@ -57,6 +57,24 @@ def layer_view(stacked, i: int):
     return tree_map(lambda x: x[i], stacked)
 
 
+def param_count(tree) -> int:
+    """Elements in the tree's tensor leaves."""
+    return sum(x.numel() for x in tree_leaves(tree) if torch.is_tensor(x))
+
+
+def tree_size_bytes(tree) -> int:
+    """Bytes of the tree's tensor leaves."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+               if torch.is_tensor(x))
+
+
+def cast_tree(tree, dtype):
+    """The tree with its floating-point tensor leaves cast to `dtype`;
+    integer leaves (W8 weights, ids) and markers are kept."""
+    return tree_map(lambda x: x.to(dtype) if torch.is_tensor(x)
+                    and x.is_floating_point() else x, tree)
+
+
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------

@@ -23,10 +23,15 @@ different row counts (a concat-packed step, `exchange_first_rows`).
 Without a group of more than one rank (no mesh, the single-device mesh,
 or an axis of size 1) every function returns its input. Only `all_reduce`, `broadcast` and the list form of
 `all_gather` are used: gloo runs those on CUDA tensors too.
+
+`broadcast_tick` and `all_status` are the online engines' control channel
+(serve/online.py): rank 0's scheduling decisions for one chunk boundary
+to every rank, and every rank's health after it.
 """
 
 from __future__ import annotations
 
+import json
 from typing import List, Optional
 
 import numpy as np
@@ -233,3 +238,49 @@ def all_equal(t: torch.Tensor, group=None) -> bool:
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t.contiguous(), group=group)
     return all(torch.equal(p, parts[0]) for p in parts)
+
+
+def broadcast_tick(tick: Optional[dict], tensors: List[torch.Tensor], group,
+                   device, src: int = 0):
+    """Rank `src`'s tick to every rank of `group`: (tick, tensors). Its
+    small fields (a dict of numbers, strings, lists and None) travel as one
+    JSON object in a uint8 host tensor, its length first; each tensor of
+    `tensors` (an embedding payload) travels as a tensor of its own on
+    `device`, allocated on the receivers from the shapes and dtypes the
+    object lists. Two collectives, plus one a tensor. The other ranks pass
+    None and [] and get rank `src`'s."""
+    rank = dist.get_rank()
+    if rank == src:
+        head = json.dumps({"tick": tick, "tensors": [
+            [list(t.shape), str(t.dtype).split(".")[-1]] for t in tensors]})
+        buf = torch.frombuffer(bytearray(head.encode()), dtype=torch.uint8)
+        n = torch.tensor([buf.numel()], dtype=torch.int64)
+    else:
+        n = torch.zeros(1, dtype=torch.int64)
+    dist.broadcast(n, src=src, group=group)
+    if rank != src:
+        buf = torch.empty(int(n), dtype=torch.uint8)
+    dist.broadcast(buf, src=src, group=group)
+    head = json.loads(bytes(buf.numpy()).decode())
+    out = []
+    for i, (shape, dtype) in enumerate(head["tensors"]):
+        t = (tensors[i].to(device).contiguous() if rank == src
+             else torch.empty(shape, dtype=getattr(torch, dtype),
+                              device=device))
+        dist.broadcast(t, src=src, group=group)
+        out.append(t)
+    return head["tick"], out
+
+
+def all_status(msg: str, group, limit: int = 512) -> List[str]:
+    """Every rank's status string over `group`, in rank order (utf-8,
+    null-padded to `limit` bytes, the longer cut): "" where a rank is
+    well, its error where it failed. One all-gather of host tensors."""
+    buf = torch.zeros(limit, dtype=torch.uint8)
+    enc = msg.encode()[:limit]
+    if enc:
+        buf[:len(enc)] = torch.frombuffer(bytearray(enc), dtype=torch.uint8)
+    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, buf, group=group)
+    return [bytes(p[p != 0].tolist()).decode(errors="replace")
+            for p in parts]

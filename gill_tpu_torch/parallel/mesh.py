@@ -18,6 +18,11 @@ memory, and the collectives of this package use only those.
 
 A world of 1 with no launcher environment is the single-device case: no
 process group, a mesh of shape (1, 1) with no groups, and no collective.
+
+Every group made here waits as long as the world's group before a
+collective fails (`group_timeout`): torch gives a new group its backend's
+default (30 minutes on gloo) instead, so a rank that stopped would hang
+the reduces of a tensor-parallel forward for that long.
 """
 
 from __future__ import annotations
@@ -116,6 +121,22 @@ def init_distributed(device="cuda", *, timeout: Optional[float] = None,
     return device
 
 
+def group_timeout(group=None) -> float:
+    """Seconds a collective of `group` (default: the world's) waits before
+    it fails, as the group was made with (`init_distributed(timeout=)`).
+    Every group here has a gloo backend for CPU tensors, which holds it."""
+    group = dist.group.WORLD if group is None else group
+    backend = group._get_backend(torch.device("cpu"))
+    return backend.options._timeout.total_seconds()
+
+
+def new_group(ranks) -> object:
+    """`dist.new_group(ranks)` with the world's timeout (`group_timeout`).
+    Every rank of the world calls it, in the same order."""
+    return dist.new_group(ranks, timeout=datetime.timedelta(
+        seconds=group_timeout()))
+
+
 def create_mesh(dp_size: int = -1, tp_size: int = 1) -> Mesh:
     """The (dp, tp) mesh over the initialized process group (or the
     single-device mesh when there is none). dp_size -1 takes the world
@@ -138,11 +159,11 @@ def create_mesh(dp_size: int = -1, tp_size: int = 1) -> Mesh:
     if not dist.is_initialized():
         return mesh
     for t in range(tp_size):
-        g = dist.new_group([d * tp_size + t for d in range(dp_size)])
+        g = new_group([d * tp_size + t for d in range(dp_size)])
         if t == coords[1]:
             mesh.data = g
     for d in range(dp_size):
-        g = dist.new_group([d * tp_size + t for t in range(tp_size)])
+        g = new_group([d * tp_size + t for t in range(tp_size)])
         if d == coords[0]:
             mesh.model = g
     return mesh

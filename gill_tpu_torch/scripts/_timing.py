@@ -206,17 +206,41 @@ def clock_note(device) -> str:
     return "# device: cpu (plain versions); every time is the host clock"
 
 
-def probe_main(probe, doc: str, argv, device, **kw) -> int:
+def wall_ms(fn, device, n: int = 1) -> float:
+    """Host-clock ms a call over `n` calls, the device synchronised before
+    and after (what a caller waits for, launches included)."""
+    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else (lambda: None))
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    sync()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def probe_main(probe, doc: str, argv, device, flags=(), **kw) -> int:
     """A probe script's main: `--out PATH` (write the rows as JSON there;
-    nothing is written without it), on CUDA the card's name and power limit
-    first, then `probe(device=device, **kw)`. Exit code 1 when a row says
-    the card could not run it."""
+    nothing is written without it), `--device` (default `device`, the
+    card), the probe's own `flags` ((name, type, help): `--name` sets the
+    probe's keyword `name`, as the original's environment variables did),
+    on CUDA the card's name and power limit first, then `probe(device=...,
+    **kw)`. Exit code 1 when a row says the card could not run it or
+    failed a check (a "failed" key)."""
     import argparse
     import json
 
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--out", help="also write the rows as JSON here")
+    ap.add_argument("--device", default=str(device),
+                    help="cuda (the card, default) or cpu")
+    for name, typ, text in flags:
+        ap.add_argument("--" + name.replace("_", "-"), dest=name, type=typ,
+                        help=text)
     args = ap.parse_args(argv)
+    device = args.device
+    kw.update({name: getattr(args, name) for name, _, _ in flags
+               if getattr(args, name) is not None})
     if torch.device(device).type == "cuda":
         print(smi_line(), flush=True)
     rows = probe(device=device, **kw)

@@ -27,13 +27,12 @@ from __future__ import annotations
 
 import dataclasses
 import sys
-import time
 
 import torch
 
 from gill_tpu_torch.config import OPTConfig
 from gill_tpu_torch.models import opt as opt_mod
-from gill_tpu_torch.scripts._timing import clock_note, probe_main
+from gill_tpu_torch.scripts._timing import clock_note, probe_main, wall_ms
 from gill_tpu_torch.serve.speculative import SpeculativeDecoder
 
 TARGET = "facebook/opt-6.7b"
@@ -50,16 +49,6 @@ def _launch_counters():
 
     return {"w8_matmul": w8_matmul.w8_matmul,
             "prefix_decode_attention": decode_attn.prefix_decode_attention}
-
-
-def _wall_ms(fn, device) -> float:
-    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
-            else (lambda: None))
-    sync()
-    t0 = time.perf_counter()
-    fn()
-    sync()
-    return 1e3 * (time.perf_counter() - t0)
 
 
 def tokens_per_round(a: float, k: int) -> float:
@@ -109,7 +98,7 @@ def probe(target=TARGET, draft=DRAFT, k=K, plen=PLEN, rounds=ROUNDS,
                 pos, cur, _ = dec._round(tc, dc, pos, cur)
         run()                                  # warm-up on the same caches
         before = {name: fn.launches for name, fn in counters.items()}
-        ms = _wall_ms(run, device)
+        ms = wall_ms(run, device)
         return ms, {name: fn.launches - before[name]
                     for name, fn in counters.items()}
 
@@ -131,7 +120,7 @@ def probe(target=TARGET, draft=DRAFT, k=K, plen=PLEN, rounds=ROUNDS,
                                       lm_head=head)
                 tok = out["logits"][0, -1].argmax().view(1, 1)
         run()
-        return _wall_ms(run, device)
+        return wall_ms(run, device)
 
     step_ms = max((timed_steps(steps[1]) - timed_steps(steps[0]))
                   / (steps[1] - steps[0]), 1e-6)

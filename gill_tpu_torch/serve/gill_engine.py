@@ -180,6 +180,29 @@ class GillDecodeEngine:
             r = min(r * 2, self.slots)
         return r
 
+    @torch.no_grad()
+    def warmup(self):
+        """Runs every (prompt bucket, wave size) prefill with every row
+        dropped (slot id `slots`: nothing is written) and one chunk per read
+        window, so kernels are built and the allocator is warm before
+        serving; every run resets the pool. Under a mesh every rank calls
+        it (the forward's reduces)."""
+        if self._dstate is None:
+            self._dstate, self._dtap = self._fresh_state()
+        rbs = sorted({self._rbucket(n) for n in range(1, self.slots + 1)})
+        for pb in self.buckets:
+            for nreq in rbs:
+                self._prefill(torch.zeros((nreq, pb, self.emb_dim),
+                                          device=self.device,
+                                          dtype=self.cache["k"].dtype),
+                              np.ones((nreq,), np.int32),
+                              np.full((nreq,), self.slots, np.int32),
+                              [None] * nreq, None)
+        for kv_hi in self.kv_buckets:
+            self._chunk(kv_hi, self._uniforms() if self.sampling else None)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     # -- logit surgery (reference models.py:476-489), per slot ---------------
 
     def _surgery(self, logits, iter_c, mw, scale):

@@ -24,9 +24,34 @@ registration, extension and drop are tickets it processes, and handles are
 the only shared state (token lists under a per-handle condition). The
 thread enters the engine's device (`torch.cuda.device`) and runs under
 `torch.no_grad()`: a new thread's current device is cuda:0 and its grad
-mode on, whatever the caller's. The port's engines have no `_ctx()` (no
-mesh); their state tensors are written in place, on the thread's current
-stream of the engine's device.
+mode on, whatever the caller's. The engines' state tensors are written in
+place, on the thread's current stream of the engine's device.
+
+An engine built with a `mesh` (tensor-parallel, data-replicated or both)
+runs one process a rank, and every rank of the world builds its online
+engine at the same point of its program. Rank 0 is the LEADER: it takes
+`submit`, `cancel`, `register_prefix`, `extend_prefix` and `drop_prefix`,
+and its scheduler decides each chunk boundary as it would alone. Before it
+acts on a boundary it broadcasts the boundary's TICK (the requests and
+prefix tickets drained there, in arrival order, the uids cancelled and
+the stop flag; `parallel.collectives.broadcast_tick`, embedding payloads
+as tensors) over a group of the whole world with the world's timeout.
+Every other rank is a FOLLOWER: its scheduler thread receives each tick
+and runs the same tickets, cancel sweep, refill, chunk and collect, in the
+same order, so its slot state stays rank 0's (greedy tokens are argmaxes
+every rank holds after the reduces; sampled tokens come from (seed,
+position) draws). Only the leader streams to handles. After each boundary
+every rank reports its health (`all_status`): a rank whose boundary
+raised fails every rank's scheduler, and so the leader's handles, at once;
+a rank that stops inside a collective fails the others when the
+collective times out. An idle leader sends an empty tick every quarter of
+the group's timeout, so its followers' waits never reach it. A follower's
+public calls raise; its caller blocks in `wait_closed()`, which returns
+once the leader's `close()` has stopped every rank. While an online
+engine is open, every collective of its rank comes from its scheduler
+thread (the forward's reduces and the ticks): no other thread of the
+process may issue one. An engine without a mesh takes no collective and
+starts no thread beyond its scheduler.
 """
 
 from __future__ import annotations
@@ -35,11 +60,14 @@ import contextlib
 import itertools
 import queue
 import threading
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from gill_tpu_torch.parallel.collectives import all_status, broadcast_tick
+from gill_tpu_torch.parallel.mesh import group_timeout, new_group
 from gill_tpu_torch.serve.engine import ServeRequest
 
 
@@ -135,10 +163,73 @@ class GillRequestHandle(RequestHandle):
         self.img_runs = None
 
 
+def _opt_int(x) -> Optional[int]:
+    return None if x is None else int(x)
+
+
+class _Tick(NamedTuple):
+    """One chunk boundary's decisions: the requests and prefix tickets
+    drained there (arrival order), the uids cancelled, and whether to
+    stop."""
+    items: list
+    cancel: frozenset
+    stop: bool
+
+
+class _TickChannel:
+    """The leader -> followers channel of a meshed online engine: a group
+    of every rank of the world (the world's timeout), the tick broadcast
+    and the health exchange. Embedding payloads travel on the card where
+    the group's CUDA backend is NCCL, else on the host."""
+
+    def __init__(self, device):
+        self.rank = dist.get_rank()
+        self.group = new_group(list(range(dist.get_world_size())))
+        # the idle leader's empty tick, well inside a follower's wait
+        self.heartbeat = group_timeout(self.group) / 4
+        nccl = "nccl" in str(dist.get_backend(self.group))
+        self.device = (device if device.type == "cuda" and nccl
+                       else torch.device("cpu"))
+
+    @staticmethod
+    def open(engine) -> "Optional[_TickChannel]":
+        """A channel for an engine with a mesh in a world of > 1 rank, else
+        None (the engine serves alone)."""
+        if getattr(engine, "mesh", None) is None or not dist.is_initialized() \
+                or dist.get_world_size() == 1:
+            return None
+        return _TickChannel(engine.device)
+
+    def exchange(self, tick: Optional[_Tick], encode, decode) -> _Tick:
+        """The leader's tick on every rank (the leader's own objects on
+        the leader, `decode`d copies elsewhere)."""
+        if self.rank == 0:
+            tensors = []
+            msg = {"items": [encode(x, tensors) for x in tick.items],
+                   "cancel": sorted(tick.cancel), "stop": tick.stop}
+            broadcast_tick(msg, tensors, self.group, self.device)
+            return tick
+        msg, tensors = broadcast_tick(None, [], self.group, self.device)
+        return _Tick([decode(x, tensors) for x in msg["items"]],
+                     frozenset(msg["cancel"]), msg["stop"])
+
+    def check(self, err: Optional[BaseException]) -> None:
+        """Every rank's health after a boundary: raises `err` (this rank's
+        own failure) or, where another rank failed, an error naming it."""
+        msgs = all_status("" if err is None
+                          else f"{type(err).__name__}: {err}", self.group)
+        if err is not None:
+            raise err
+        bad = [f"rank {r}: {m}" for r, m in enumerate(msgs) if m]
+        if bad:
+            raise RuntimeError("; ".join(bad))
+
+
 class _ThreadedEngine:
     """The scheduler thread shared by both front ends: locked submit and
     close (no registration after shutdown), queue draining, prefix
-    tickets, cancellation and crash containment."""
+    tickets, cancellation and crash containment; over a meshed engine, the
+    leader / follower protocol of the module docstring."""
 
     _thread_name = "serve-scheduler"
 
@@ -150,9 +241,18 @@ class _ThreadedEngine:
         self._handles = {}
         self._stop = False
         self._lock = threading.Lock()
+        self._sync = _TickChannel.open(engine)
+        self.leader = self._sync is None or self._sync.rank == 0
         self._thread = threading.Thread(target=self._guarded_loop,
                                         daemon=True, name=self._thread_name)
         self._thread.start()
+
+    def _check_leader(self):
+        if not self.leader:
+            raise RuntimeError(
+                f"rank {self._sync.rank} follows rank 0's scheduler: submit, "
+                f"cancel, prefix calls and close() go to rank 0; wait here "
+                f"with wait_closed()")
 
     def _register(self, handle):
         with self._lock:
@@ -165,6 +265,7 @@ class _ThreadedEngine:
     def _submit_reg(self, reg: _PrefixReg) -> Optional[int]:
         """Queues a prefix ticket and blocks until the scheduler thread
         (the only owner of the engine and the device) has processed it."""
+        self._check_leader()
         with self._lock:
             if self._stop:
                 raise RuntimeError("engine closed")
@@ -188,12 +289,27 @@ class _ThreadedEngine:
         self._submit_reg(_PrefixReg(None, drop=prefix_id))
 
     def close(self):
+        """Stops the scheduler (on the leader of a meshed engine: every
+        rank's) and joins it."""
+        self._check_leader()
         with self._lock:
             if self._stop:
                 return
             self._stop = True
             self._q.put(None)
         self._thread.join()
+
+    def wait_closed(self, timeout: Optional[float] = None) -> bool:
+        """Blocks until the scheduler thread has ended (a follower's: once
+        the leader's close() has stopped it) or `timeout` seconds passed
+        (False). Raises RuntimeError with the scheduler's error if it
+        crashed."""
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            return False
+        if self.crash:
+            raise RuntimeError(self.crash)
+        return True
 
     def _device(self):
         dev = self.eng.device
@@ -261,17 +377,29 @@ class _ThreadedEngine:
                 keep.append(h)
         waiting[:] = keep
 
-    def _cancel_sweep(self, waiting: list):
+    def _cancelled(self, items: list) -> frozenset:
+        """The uids whose RequestHandle.cancel() the boundary honours: the
+        requests drained so far and those in flight (the flags read once,
+        here, so every rank sweeps the same set)."""
+        out = {h.uid for h in items
+               if isinstance(h, RequestHandle) and h.cancelled}
+        for st in self.eng._state:
+            h = None if st is None else self._handles.get(st.uid)
+            if h is not None and h.cancelled:
+                out.add(st.uid)
+        return frozenset(out)
+
+    def _cancel_sweep(self, waiting: list, doomed: frozenset):
         """Honours RequestHandle.cancel() at the chunk boundary (scheduler
-        thread only). Queued requests complete at once with no tokens;
-        requests in flight free their slot (on the host now, on the device
-        through `_deactivate_slots`, so the slot stops decoding and no
-        longer bounds the read window) and complete with the tokens
-        streamed so far."""
+        thread only), for the uids in `doomed`. Queued requests complete at
+        once with no tokens; requests in flight free their slot (on the
+        host now, on the device through `_deactivate_slots`, so the slot
+        stops decoding and no longer bounds the read window) and complete
+        with the tokens streamed so far."""
         eng = self.eng
         keep = []
         for w in waiting:
-            if w.cancelled:
+            if w.uid in doomed:
                 eng.stats["cancelled"] = eng.stats.get("cancelled", 0) + 1
                 self._finish_cancelled(w)
             else:
@@ -279,10 +407,10 @@ class _ThreadedEngine:
         waiting[:] = keep
         dead = []
         for s, st in enumerate(eng._state):
-            if st is None:
+            if st is None or st.uid not in doomed:
                 continue
             h = self._handles.get(st.uid)
-            if h is not None and h.cancelled:
+            if h is not None:
                 dead.append(s)
                 eng._state[s] = None
                 eng._shadow[s] = 0
@@ -301,38 +429,100 @@ class _ThreadedEngine:
     def _deactivate_slots(self, idx: torch.Tensor) -> None:
         raise NotImplementedError
 
-    def _drain_queue(self, waiting: list, block: bool):
+    def _drain_queue(self, block: bool) -> list:
+        """What arrived, in order (the close sentinel left out); with
+        `block`, waits for the first item, on a meshed leader at most a
+        heartbeat."""
+        timeout = None if self._sync is None else self._sync.heartbeat
+        out = []
         try:
-            item = self._q.get(block=block)
+            item = self._q.get(block=block, timeout=timeout if block
+                               else None)
         except queue.Empty:
-            return
+            return out
         while True:
             if item is not None:
-                waiting.append(item)
+                out.append(item)
             try:
                 item = self._q.get_nowait()
             except queue.Empty:
-                return
+                return out
+
+    def _next_tick(self, waiting: list) -> _Tick:
+        """The leader drains its queue (parking on it while idle) and
+        decides; a follower receives the leader's decision."""
+        tick = None
+        if self.leader:
+            idle = not waiting and all(st is None for st in self.eng._state)
+            new = self._drain_queue(block=idle)
+            tick = _Tick(new, self._cancelled(waiting + new), self._stop)
+        if self._sync is not None:
+            tick = self._sync.exchange(tick, self._encode, self._decode)
+        return tick
 
     def _loop(self):
         eng = self.eng
         eng._reset_pool()
         waiting: list = []
         while True:
-            idle = not waiting and all(st is None for st in eng._state)
-            self._drain_queue(waiting, block=idle)
-            if self._stop:
+            tick = self._next_tick(waiting)
+            if tick.stop:
                 break
-            waiting = self._run_tickets(waiting)
-            self._cancel_sweep(waiting)
-            self._reject_orphans(waiting)
-            if waiting:
-                reqs = [self._request(h) for h in waiting]
-                eng._refill(reqs)
-                waiting = waiting[len(waiting) - len(reqs):]
-            if all(st is None for st in eng._state):
+            waiting.extend(tick.items)
+            if self._sync is None:
+                self._boundary(waiting, tick.cancel)
                 continue
+            try:
+                self._boundary(waiting, tick.cancel)
+            except Exception as e:  # noqa: BLE001 — reported to every
+                # rank, then raised by `check`
+                self._sync.check(e)
+            else:
+                self._sync.check(None)
+
+    def _boundary(self, waiting: list, doomed: frozenset):
+        """One chunk boundary: tickets, cancels, orphans, refill, then a
+        chunk while any slot is busy."""
+        eng = self.eng
+        waiting[:] = self._run_tickets(waiting)
+        self._cancel_sweep(waiting, doomed)
+        self._reject_orphans(waiting)
+        if waiting:
+            reqs = [self._request(h) for h in waiting]
+            eng._refill(reqs)
+            del waiting[:len(waiting) - len(reqs)]
+        if any(st is not None for st in eng._state):
             self._step()
+
+    # -- the tick's wire form (meshed engines) --------------------------------
+
+    def _encode(self, item, tensors: list) -> dict:
+        if isinstance(item, _PrefixReg):
+            return {"pfx": None if item.payload is None
+                    else self._payload_out(item.payload, tensors),
+                    "parent": item.parent, "drop": item.drop}
+        return {"req": self._request_out(item, tensors)}
+
+    def _decode(self, msg: dict, tensors: list):
+        if "pfx" in msg:
+            return _PrefixReg(None if msg["pfx"] is None
+                              else self._payload_in(msg["pfx"], tensors),
+                              parent=msg["parent"], drop=msg["drop"])
+        h = self._request_in(msg["req"], tensors)
+        self._handles[h.uid] = h
+        return h
+
+    def _payload_out(self, payload, tensors: list):
+        raise NotImplementedError
+
+    def _payload_in(self, msg, tensors: list):
+        raise NotImplementedError
+
+    def _request_out(self, h, tensors: list) -> dict:
+        raise NotImplementedError
+
+    def _request_in(self, msg: dict, tensors: list):
+        raise NotImplementedError
 
     def _request(self, h):
         raise NotImplementedError
@@ -348,6 +538,7 @@ class OnlineEngine(_ThreadedEngine):
 
     def submit(self, prompt: List[int], max_new_tokens: int, *,
                prefix_id: Optional[int] = None) -> RequestHandle:
+        self._check_leader()
         if len(prompt) + max_new_tokens > self.eng.max_seq:
             raise ValueError(
                 f"{len(prompt)}+{max_new_tokens} exceeds max_seq "
@@ -372,6 +563,7 @@ class OnlineEngine(_ThreadedEngine):
         """Registers a shared prompt prefix (DecodeEngine.register_prefix)
         through the scheduler thread. Blocks until its KV is cached;
         returns the id for submit()."""
+        self._check_leader()
         if not 1 <= len(tokens) < self.eng.max_seq:
             raise ValueError(f"prefix length {len(tokens)} must be in "
                              f"[1, max_seq={self.eng.max_seq})")
@@ -392,10 +584,35 @@ class OnlineEngine(_ThreadedEngine):
         return ServeRequest(uid=h.uid, prompt=h.prompt,
                             max_new_tokens=h.max_new, prefix_id=h.prefix_id)
 
+    def _payload_out(self, payload, tensors):
+        return payload                 # token ids
+
+    def _payload_in(self, msg, tensors):
+        return msg
+
+    def _request_out(self, h: RequestHandle, tensors) -> dict:
+        return {"uid": h.uid, "prompt": h.prompt, "max_new": int(h.max_new),
+                "prefix_id": _opt_int(h.prefix_id)}
+
+    def _request_in(self, msg: dict, tensors) -> RequestHandle:
+        h = RequestHandle(msg["uid"], msg["prompt"], msg["max_new"])
+        h.prefix_id = msg["prefix_id"]
+        return h
+
     def _step(self):
         eng = self.eng
         eng._collect(eng._run_chunk().numpy())
-        self._deliver()
+        if self.leader:
+            self._deliver()
+        else:
+            self._retire()
+
+    def _retire(self):
+        """A follower's `_deliver`: forgets the finished requests."""
+        fin, self.eng._finished = self.eng._finished, []
+        for uid, gen in fin:
+            self._handles.pop(uid, None)
+            self.eng.stats["tokens_out"] += len(gen)
 
     def _deliver(self):
         """Pushes the engine's progress out to the handles (after each
@@ -433,6 +650,7 @@ class GillOnlineEngine(_ThreadedEngine):
                prefix_id: Optional[int] = None) -> GillRequestHandle:
         from gill_tpu_torch.serve.gill_engine import GillServeRequest
 
+        self._check_leader()
         # with prefix_id set, prompt_embs carry only the suffix rows AFTER
         # the registered prefix (gill_engine.register_prefix)
         req = GillServeRequest(
@@ -450,6 +668,7 @@ class GillOnlineEngine(_ThreadedEngine):
         (GillDecodeEngine.register_prefix) through the scheduler thread.
         Blocks until its KV is cached; returns the id for
         submit(prefix_id=...)."""
+        self._check_leader()
         self.eng._check_embs(embs, "prefix")
         if not 1 <= embs.shape[0] < self.eng.max_seq:
             raise ValueError(f"prefix length {embs.shape[0]} must be in "
@@ -471,26 +690,57 @@ class GillOnlineEngine(_ThreadedEngine):
     def _request(self, h: GillRequestHandle):
         return h.request
 
+    # the request's scalar fields and their wire types
+    _FIELDS = {"num_words": int, "min_word_tokens": int, "img_scale": float,
+               "temperature": float, "top_p": float, "seed": int,
+               "max_img_runs": int, "prefix_id": _opt_int}
+
+    def _payload_out(self, payload, tensors):
+        tensors.append(torch.as_tensor(payload))
+        return len(tensors) - 1        # an embedding payload's index
+
+    def _payload_in(self, msg, tensors):
+        return tensors[msg]
+
+    def _request_out(self, h: GillRequestHandle, tensors) -> dict:
+        req = h.request
+        out = {f: cast(getattr(req, f)) for f, cast in self._FIELDS.items()}
+        out.update(uid=req.uid, embs=self._payload_out(req.embs, tensors))
+        return out
+
+    def _request_in(self, msg: dict, tensors) -> GillRequestHandle:
+        from gill_tpu_torch.serve.gill_engine import GillServeRequest
+
+        req = GillServeRequest(uid=msg["uid"], embs=tensors[msg["embs"]],
+                               **{f: msg[f] for f in self._FIELDS})
+        h = GillRequestHandle(req.uid, req)
+        h.prefix_id = req.prefix_id
+        return h
+
     def _step(self):
         eng = self.eng
         toks, valids, tap = eng._run_chunk()
         for st in eng._state:
             if st is not None:
                 st.planned += eng.chunk    # the sampling draws' counter
-        self._deliver(toks.numpy(), valids.numpy(), tap)
+        rows = self._fold(toks.numpy(), valids.numpy())
+        if self.leader:
+            self._deliver(rows, tap)
+        else:
+            for _, st, _, finished in rows:
+                if finished:
+                    self._handles.pop(st.uid, None)
 
-    def _deliver(self, toks, valids, tap):
-        """Folds one chunk's rows into the slot states, streams each
-        request's VALID token prefix, and finishes the slots whose budget
-        and fed (tap) coverage are both collected. The tap ring comes to
-        the host only when a slot finishes in this chunk."""
+    def _fold(self, toks, valids) -> list:
+        """Folds one chunk's rows into the slot states and frees the slots
+        whose budget and fed (tap) coverage are both collected: (slot
+        state, its new VALID-prefix tokens, finished) per busy slot."""
         eng = self.eng
-        tap_host = None
+        rows = []
         for s in range(eng.slots):
             st = eng._state[s]
             if st is None:
                 continue
-            h = self._handles[st.uid]
             lo = 0 if st.fresh else 1
             st.fresh = False
             st.fed += toks.shape[0] - 1
@@ -505,22 +755,35 @@ class GillOnlineEngine(_ThreadedEngine):
                     new_tok.append(t)
                 else:
                     st.prefix_ok = False   # valid latches off
+            # output m's tap is captured at fed step m + 1: finish only
+            # once the fed coverage reaches the budget
+            finished = len(st.generated) >= st.budget and st.fed >= st.budget
+            if finished:
+                eng._state[s] = None
+                eng._shadow[s] = 0
+                eng._cap[s] = 0
+            rows.append((s, st, new_tok, finished))
+        return rows
+
+    def _deliver(self, rows: list, tap):
+        """Streams each request's new valid tokens and completes the
+        finished ones with their taps. The tap ring comes to the host only
+        when a slot finishes in this chunk."""
+        tap_host = None
+        for s, st, new_tok, finished in rows:
+            h = self._handles[st.uid]
             if new_tok:
                 with h.cond:
                     h.tokens.extend(new_tok)
                     h.cond.notify_all()
-            # output m's tap is captured at fed step m + 1: finish only
-            # once the fed coverage reaches the budget
-            if len(st.generated) >= st.budget and st.fed >= st.budget:
-                if tap_host is None:
-                    tap_host = tap.float().cpu().numpy()
-                eng._state[s] = None
-                eng._shadow[s] = 0
-                eng._cap[s] = 0
-                self._handles.pop(st.uid)
-                eng.stats["tokens_out"] += len(h.tokens)
-                with h.cond:
-                    h.img_hidden = np.array(tap_host[s, 0])
-                    h.img_runs = np.array(tap_host[s])
-                    h.done.set()
-                    h.cond.notify_all()
+            if not finished:
+                continue
+            if tap_host is None:
+                tap_host = tap.float().cpu().numpy()
+            self._handles.pop(st.uid)
+            self.eng.stats["tokens_out"] += len(h.tokens)
+            with h.cond:
+                h.img_hidden = np.array(tap_host[s, 0])
+                h.img_runs = np.array(tap_host[s])
+                h.done.set()
+                h.cond.notify_all()

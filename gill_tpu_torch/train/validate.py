@@ -65,6 +65,15 @@ def decode_tokens(tokenizer, rows, strip_img_tokens: int = 0) -> list:
     return caps
 
 
+def generate_captions(core, params, pixels, prefix_ids, tokenizer,
+                      num_words: int = 32) -> list:
+    """Greedy captions of `pixels` after the prefix, decoded to text
+    (`generate_caption_tokens` then `decode_tokens`)."""
+    toks = generate_caption_tokens(core, params, pixels, prefix_ids,
+                                   num_words)
+    return decode_tokens(tokenizer, toks)
+
+
 def validate(core, tc, adapters, frozen, val_loader, tokenizer,
              epoch: int = 0, writer=None, prefix_ids=None,
              max_steps: Optional[int] = None, decode_captions: bool = True,

@@ -1,5 +1,6 @@
 """Image utilities (counterpart of gill_tpu/utils/image.py): CLIP
-preprocessing into NHWC float arrays, the URL fetch of retrieved images,
+preprocessing into NHWC float arrays (`get_pixel_values`), square padding,
+the URL fetch of retrieved images,
 caption truncation, and the caption renders and grids of the trainer's
 TensorBoard images. Normalization constants match HF CLIPImageProcessor;
 CPU tests hold the outputs equal to gill_tpu's."""
@@ -9,7 +10,7 @@ from __future__ import annotations
 import io
 
 import numpy as np
-from PIL import Image, ImageDraw, ImageFont
+from PIL import Image, ImageDraw, ImageFont, ImageOps
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -28,6 +29,20 @@ def clip_preprocess(img: Image.Image, image_size: int = 224) -> np.ndarray:
     img = img.crop((left, top, left + image_size, top + image_size))
     arr = np.asarray(img, np.float32) / 255.0
     return (arr - CLIP_MEAN) / CLIP_STD
+
+
+def get_pixel_values(img: Image.Image, image_size: int = 224) -> np.ndarray:
+    """The reference's name for `clip_preprocess` (gill/utils.py)."""
+    return clip_preprocess(img, image_size)
+
+
+def pad_to_square(img: Image.Image) -> Image.Image:
+    """Center-pads to a square with black (reference SquarePad,
+    gill/utils.py:78-87)."""
+    w, h = img.size
+    m = max(w, h)
+    left, top = (m - w) // 2, (m - h) // 2
+    return ImageOps.expand(img, (left, top, m - w - left, m - h - top))
 
 
 def get_image_from_url(url: str) -> Image.Image:

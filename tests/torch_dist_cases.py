@@ -326,3 +326,197 @@ def cli_resume(argv_full, argv_first, argv_resume_head):
             "first_differs": any(not np.array_equal(a, np.asarray(b))
                                  for a, b in zip(leaves,
                                                  tree_leaves(first)))}
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel online serving
+# ---------------------------------------------------------------------------
+
+def _gated(eng, holds: dict):
+    """Parks the scheduler inside `_run_chunk` call n (1-based) until
+    holds[n][1] is set; holds[n][0] is set once it is parked there."""
+    orig = eng._run_chunk
+    calls = [0]
+
+    def gated():
+        calls[0] += 1
+        if calls[0] in holds:
+            parked, go = holds[calls[0]]
+            parked.set()
+            if not go.wait(60):
+                raise RuntimeError("the chunk was not released")
+        return orig()
+
+    eng._run_chunk = gated
+
+
+def _park(holds, n):
+    import threading
+
+    holds[n] = (threading.Event(), threading.Event())
+    return holds[n]
+
+
+def _lm_online(full, opt_kw, engine_kw, mesh, collect=None):
+    """OnlineEngine over DecodeEngine(mesh=); `collect` replaces the
+    engine's `_collect` before its scheduler starts."""
+    from gill_tpu_torch.serve.engine import DecodeEngine
+    from gill_tpu_torch.serve.online import OnlineEngine
+
+    eng = DecodeEngine(full["lm"], tcfg.OPTConfig(**opt_kw), mesh=mesh,
+                       device="cpu", kv_dtype=torch.float32, **engine_kw)
+    if collect is not None:
+        eng._collect = collect
+    return OnlineEngine(eng)
+
+
+def _follow(online) -> dict:
+    """A follower's part: its public calls refused, then it blocks until
+    the leader closes; its engine's counters (rank 0's when the slot
+    states agree)."""
+    try:
+        online.submit([5, 6], 2)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    online.wait_closed()
+    return {"refused": refused, "stats": dict(online.eng.stats)}
+
+
+def _staggered(online, reqs, gap: float):
+    import time
+
+    hs = []
+    for p, n in reqs:
+        hs.append(online.submit(p, n))
+        time.sleep(gap)
+    return [h.result(timeout=120) for h in hs]
+
+
+def online_tp(core_kw, seed: int, opt_kw, engine_kw, gill_engine_kw,
+              staggered, cancel, prefix, gill, idle_s: float,
+              pg_timeout: float):
+    """OnlineEngine and GillOnlineEngine over engines with a mesh, one
+    engine after another on every rank: rank 0 serves each case's requests
+    (staggered submits, a queued and an in-flight cancel, prefix tickets,
+    an idle spell longer than the group's timeout, GILL requests with an
+    embedding prefix) and returns what its handles gave; the other ranks
+    follow (each returns its refused submit and its engines' counters).
+    The world's timeout is cut to `pg_timeout` once the group is up, so
+    the groups made after it (the mesh's, the online engines') wait that
+    long. Last, a follower's chunk collect raises while rank 0's request
+    is in flight: the time rank 0's handle took to fail, and every rank's
+    scheduler error."""
+    import datetime
+    import time
+
+    import torch.distributed.distributed_c10d as c10d
+
+    from gill_tpu_torch.serve.gill_engine import GillDecodeEngine
+    from gill_tpu_torch.serve.online import GillOnlineEngine
+
+    c10d._set_pg_timeout(datetime.timedelta(seconds=pg_timeout))
+    world = dist.get_world_size()
+    lead = dist.get_rank() == 0
+    full = from_jax.gill_params_from_jax(make_params(core_kw, seed))
+    out = {}
+
+    # the LM engine at mesh (1, world): arrivals, cancels, prefixes, idle
+    mesh = create_mesh(1, world)
+    online = _lm_online(full, opt_kw, engine_kw, mesh)
+    out["heartbeat_s"] = online._sync.heartbeat
+    if lead:
+        out["staggered"] = _staggered(online, staggered, 0.05)
+        holds = {}
+        p1, g1 = _park(holds, 1)
+        p2, g2 = _park(holds, 2)
+        _gated(online.eng, holds)
+        warm = online.submit(*cancel["warm"])
+        assert p1.wait(60)
+        # while chunk 1 (the warm request's) is held: the next wave fills
+        # the slots and one more request queues behind it
+        hs = [online.submit(p, n) for p, n in cancel["reqs"]]
+        g1.set()
+        assert p2.wait(60)
+        hs[cancel["in_flight"]].cancel()
+        hs[cancel["queued"]].cancel()
+        g2.set()
+        out["cancel"] = {"warm": warm.result(timeout=120),
+                         "reqs": [h.result(timeout=120) for h in hs],
+                         "flags": [h.cancelled for h in hs]}
+        pid0 = online.register_prefix(prefix["prefix"])
+        pid1 = online.extend_prefix(pid0, prefix["extension"])
+        hs = [online.submit(p, n, prefix_id=[pid0, pid1][k])
+              for p, n, k in prefix["reqs"]]
+        res = [h.result(timeout=120) for h in hs]
+        online.drop_prefix(pid0)
+        try:
+            online.submit(prefix["reqs"][0][0], 2, prefix_id=pid0)
+            dropped = None
+        except ValueError as e:
+            dropped = str(e)
+        out["prefix"] = {"pids": [pid0, pid1], "tokens": res,
+                         "dropped": dropped}
+        time.sleep(idle_s)
+        p, n = staggered[0]
+        out["after_idle"] = online.submit(p, n).result(timeout=120)
+        online.close()
+        out["stats"] = dict(online.eng.stats)
+    else:
+        out["follower"] = _follow(online)
+
+    # the GILL engine at mesh (1, world), an embedding prefix
+    geng = GillDecodeEngine(make_core(core_kw, mesh), full, mesh=mesh,
+                            device="cpu", kv_dtype=torch.float32,
+                            **gill_engine_kw)
+    gonline = GillOnlineEngine(geng)
+    if lead:
+        pid = gonline.register_prefix(gill["prefix"])
+        hs = [gonline.submit(c["embs"], c["num_words"],
+                             img_scale=c["img_scale"],
+                             prefix_id=pid if c["prefixed"] else None)
+              for c in gill["cases"]]
+        out["gill"] = [{"tokens": h.result(timeout=120),
+                        "img_runs": h.img_runs} for h in hs]
+        gonline.close()
+        out["gill_stats"] = dict(geng.stats)
+    else:
+        out["gill_follower"] = _follow(gonline)
+
+    # mesh (world, 1): every rank a replica, ticks over the world
+    online = _lm_online(full, opt_kw, engine_kw, create_mesh(world, 1))
+    if lead:
+        out["replicas"] = _staggered(online, staggered, 0.0)
+        online.close()
+        out["replica_stats"] = dict(online.eng.stats)
+    else:
+        out["replica_follower"] = _follow(online)
+
+    # a follower's collect raises at its first chunk
+    def boom(toks):
+        raise RuntimeError("a fault injected on a follower")
+
+    online = _lm_online(full, opt_kw, engine_kw, mesh,
+                        None if lead else boom)
+    if lead:
+        t0 = time.perf_counter()
+        h = online.submit(*cancel["reqs"][0])   # longer than one chunk
+        try:
+            h.result(timeout=4 * pg_timeout)
+            out["fault"] = {"error": None}
+        except RuntimeError as e:
+            out["fault"] = {"error": str(e)}
+        out["fault"]["s"] = time.perf_counter() - t0
+        try:
+            online.wait_closed(4 * pg_timeout)
+        except RuntimeError:
+            pass                           # the crash, read below
+        out["fault"]["crash"] = online.crash
+    else:
+        try:
+            online.wait_closed(4 * pg_timeout)
+            out["fault"] = {"crash": None}
+        except RuntimeError as e:
+            out["fault"] = {"crash": str(e)}
+    out["fault"]["thread_alive"] = online._thread.is_alive()
+    return out
