@@ -96,9 +96,9 @@
    attn_pack_probe); S1-S3, K4 and K2 must launch there and no probe row
    may fail.
 8. Online serving (slice 11), phase F, on phase A's engine and tokens
-   (`serve/online.py` OnlineEngine): (F1) the 48 requests from 4 threads
-   at once; (F2) the same requests with exponential gaps at half the
-   request rate phase A sustained: time to first token and inter-token
+   (`serve/online.py` OnlineEngine): (F1) the trace's first 24 requests
+   from 4 threads at once; (F2) the same requests with exponential gaps
+   at half the request rate phase A sustained: time to first token and inter-token
    gap p50 / p99, tokens/s, the device's busy share over a 2 s profiled
    window and launches; (F3) a queued and an in-flight request cancelled
    while the scheduler is parked at a chunk boundary; (F4) `make_server`
@@ -177,7 +177,8 @@
    mesh code path, tokens equal to the plain engine's. (I4) inside I1's
    ranks: the tp-2 bf16 engine behind `OnlineEngine` (rank 0 the leader,
    rank 1 following its ticks), the same 16 requests arriving at I4_RATE
-   a second with one cancelled while queued and one in flight: every
+   a second with one cancelled while queued and one in flight (its
+   budget raised to I4_FLIGHT_BUDGET, five chunks): every
    other request's tokens equal to that engine's run_pipelined tokens,
    the cancelled ones prefixes of them, K1 and K6 launched on each rank,
    every follower's counters rank 0's; time to first token p50 / p99 and
@@ -230,7 +231,31 @@
    `scripts.validate_real_weights` without assets (every check SKIPPED,
    status 0) and, inside phase H1, `scripts.prune_model_ckpt` on its
    checkpoint (the `.npz` equal to `ckpt_best/`'s adapters).
-13. Checks: finite outputs of the expected shapes; request (a) gives the
+13. The native host engines and the closing tools (slice 17), phase N,
+   after phase H: (N1) `gill_tpu_torch.native`'s BPE and image engines
+   built with g++ here, each printed as `native_bpe` / `native_image`
+   "built" or "unavailable: <the compiler's last line>" (a missing
+   libjpeg / libpng is reported, not failed); a built image engine's
+   `decode_preprocess` within N_IMAGE_TOL of `clip_preprocess` on seeded
+   JPEGs, PNGs, a grayscale and a palette PNG, bad bytes giving None; a
+   built BPE engine's ids equal to the Python path's on the fixture
+   vocabulary (`scripts.make_tokenizer_fixture`) over a long seeded text;
+   phase H1's training set (224² PNGs) and as many 500 x 375 JPEGs
+   through `TsvDataset` + `DataLoader` with the image engine and under
+   GILL_NO_NATIVE_IMAGE=1, in turns: items/s of each and their batches
+   within N_IMAGE_TOL. (N2) `scripts.
+   profile_kv_window`'s perf phase, cut: a random OPT-6.7B in W8 on phase
+   A's engine construction (16 slots, chunk 32), the trace's first 16
+   requests with budgets capped at 64, max_seq 512 and 2048 x the read
+   ladder off / on: tokens/s and the mean window; the ladder on and off
+   give the same tokens, the other depth the same or a near-tie at each
+   first divergence; K4 and K6 launch. (N3) inside
+   phase I1's two ranks, `scripts.tp_collective_budget`'s decode step of
+   OPT-6.7B at full width, tp 2 over gloo on cuda:0, batch 8: each
+   collective by kind, dtype and bytes (2 all-reduces a layer and nothing
+   else), the ms of one of each size alone, the step's ms, and the step's
+   logits and tokens the same with the recorder open.
+14. Checks: finite outputs of the expected shapes; request (a) gives the
    same tokens with every kernel swapped for its plain version; CLIP, the
    OPT prefill, one full-width UNet step, the VAE decode and one W8 decode
    step of phase A agree with their plain-version runs within stated
@@ -1402,10 +1427,10 @@ def serving_probes(torch, w8_model, failures):
     """The serving probes' measuring functions on phase A's W8 OPT-6.7B
     (the GILL ones on the W8 GILL around it), repetitions and traces cut:
     one chunk size (32), 16 requests where an original takes 48 (32 new
-    tokens each for profile_prefix), three chat turns in one pass, 8
-    decode steps for the ablations and the trace, and the plain decode
-    path on the trace's first 16 requests with budgets capped at 64 (as
-    phase A's plain comparison). The launch counts are set to 0 before the
+    tokens each for profile_prefix, at most 64 for profile_serve_sched),
+    one GILL chunk, two chat turns in one pass, 8 decode steps for the
+    ablations and the trace, and the plain decode path on the trace's
+    first 8 requests with budgets capped at 64. The launch counts are set to 0 before the
     probes and read after: K4 and K6 must launch; a row with "failed" or a
     value that is not finite fails the run."""
     from gill_tpu_torch.scripts import (profile_chat_extend, profile_decode,
@@ -1416,20 +1441,21 @@ def serving_probes(torch, w8_model, failures):
 
     lm8, core, gp = w8_model.params["lm"], w8_model.core, w8_model.params
     cfg = core.opt_cfg
-    mixed = serve_trace(48)[:16]
+    mixed = serve_trace(48)[:8]
     for r in mixed:
         r.max_new_tokens = min(r.max_new_tokens, 64)
     probes = [
         ("profile_serve", lambda: profile_serve.probe(
             model=cfg, params=lm8, n_chunk=2, n_prefill=1, n_round_trip=5)),
         ("profile_gill_serve", lambda: profile_gill_serve.probe(
-            model=cfg, core=core, params=gp, n_chunk=2, n_wave=1)),
+            model=cfg, core=core, params=gp, n_chunk=1, n_wave=1)),
         ("profile_serve_sched", lambda: profile_serve_sched.probe(
-            model=cfg, params=lm8, chunks=(32,), nreq=16, depths=(2,))),
+            model=cfg, params=lm8, chunks=(32,), nreq=16, depths=(2,),
+            gen=(16, 65))),
         ("profile_prefix", lambda: profile_prefix.probe(
             model=cfg, params=lm8, nreq=16, new=32)),
         ("profile_chat_extend", lambda: profile_chat_extend.probe(
-            model=cfg, core=core, params=gp, turns=3, passes=1)),
+            model=cfg, core=core, params=gp, turns=2, passes=1)),
         ("profile_decode", lambda: profile_decode.probe(
             model=cfg, params=lm8, gen=8)),
         ("profile_opt67", lambda: profile_opt67.probe(model=cfg,
@@ -1573,10 +1599,16 @@ def check_tokens(got: dict, want: dict, phase: str, failures, rep):
                         f"from phase A's: {bad}")
 
 
+# F1 / F2 serve the trace's first F_REQS of phase A's 48 requests (the
+# script's run time; F2 keeps half of phase A's request rate)
+F_REQS = 24
+
+
 def f1_burst(torch, online, reqs, want, launches_a, failures):
-    """F1: bench_serve's 48 requests from 4 threads at once."""
+    """F1: the trace's first F_REQS requests from 4 threads at once."""
     import threading
 
+    reqs = reqs[:F_REQS]
     rep, handles, lock, slog = {}, {}, threading.Lock(), StreamLog()
 
     def submitter(part):
@@ -1620,15 +1652,16 @@ def f1_burst(torch, online, reqs, want, launches_a, failures):
 
 
 def f2_arrivals(torch, online, reqs, want, wall_a, failures):
-    """F2: the same requests with exponential gaps at half the request rate
-    phase A sustained; a 2 s torch.profiler window in the middle reads the
-    device's busy share."""
+    """F2: the trace's first F_REQS requests with exponential gaps at half
+    the request rate phase A sustained; a 2 s torch.profiler window in the
+    middle reads the device's busy share."""
     import threading
 
     import numpy as np
 
     rep, handles, slog = {}, {}, StreamLog()
     rate = 0.5 * len(reqs) / wall_a
+    reqs = reqs[:F_REQS]
     gaps = np.random.RandomState(11).exponential(1 / rate, size=len(reqs))
     arrivals = np.cumsum(gaps)
     rep["requests_per_s"] = rate
@@ -4132,6 +4165,372 @@ def phase_h(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase N: the native host engines and the closing tools (slice 17)
+# ---------------------------------------------------------------------------
+
+# N1: the native image engine against the PIL path (tests/test_native_image.py's
+# bound on CLIP-normalized values: PIL resamples uint8 in 8-bit fixed point),
+# on seeded JPEG / PNG sizes and a grayscale and a palette PNG
+N_IMAGE_TOL = 0.02
+N_IMAGE_CASES = [("JPEG", (320, 240)), ("JPEG", (100, 467)),
+                 ("JPEG", (224, 224)), ("JPEG", (37, 61)),
+                 ("PNG", (320, 240)), ("PNG", (100, 467)),
+                 ("PNG", (224, 224)), ("PNG", (37, 61))]
+N_BPE_WORDS, N_LOADER_BATCH, N_LOADER_THREADS = 20_000, 32, 8
+# N2: profile_kv_window's perf phase, cut: OPT-6.7B W8 as phase A builds
+# its engine, the trace's first N2_REQS requests with budgets capped at
+# N2_BUDGET (phase I's cap), max_seq N2_SEQS x the read ladder off / on,
+# no profiled chunk (phase A profiles one at max_seq 512; the script
+# profiles each run)
+N2_SEQS, N2_REQS, N2_BUDGET = (512, 2048), 16, 64
+# N3 (inside phase I1's tp-2 ranks): tp_collective_budget's decode step
+N3_BATCH, N3_MAX_SEQ, N3_REPS = 8, 128, 10
+
+
+def _last_line(text) -> str:
+    lines = [ln.strip() for ln in (text or "").splitlines() if ln.strip()]
+    return lines[-1] if lines else "no compiler output"
+
+
+def _first_error(text) -> str:
+    """The compiler's first line that names an error (its last line is
+    often just "compilation terminated.")."""
+    lines = [ln.strip() for ln in (text or "").splitlines()
+             if "error" in ln.lower()]
+    return lines[0] if lines else _last_line(text)
+
+
+def _n_image_bytes(fmt: str, wh, seed: int, mode: str = "RGB") -> bytes:
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    if mode == "L":
+        img = Image.fromarray(rng.randint(0, 255, (wh[1], wh[0]), np.uint8),
+                              "L")
+    else:
+        img = Image.fromarray(rng.randint(0, 255, (wh[1], wh[0], 3),
+                                          np.uint8))
+        if mode == "P":
+            img = img.convert("P", palette=Image.ADAPTIVE)
+    buf = io.BytesIO()
+    img.save(buf, fmt, quality=95)
+    return buf.getvalue()
+
+
+def n1_image(native, failures) -> dict:
+    """decode_preprocess against clip_preprocess on seeded images."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from gill_tpu_torch.utils import image as iu
+
+    mean, std = iu.CLIP_MEAN.reshape(-1), iu.CLIP_STD.reshape(-1)
+    cases = [(f, wh, "RGB", 224) for f, wh in N_IMAGE_CASES] + [
+        ("PNG", (128, 96), "L", 64), ("PNG", (128, 96), "P", 64)]
+    errs = {}
+    t_native = t_pil = 0.0
+    for i, (fmt, wh, mode, size) in enumerate(cases):
+        data = _n_image_bytes(fmt, wh, 100 + i, mode)
+        t0 = time.perf_counter()
+        out = native.decode_preprocess(data, size, mean, std)
+        t1 = time.perf_counter()
+        ref = iu.clip_preprocess(Image.open(io.BytesIO(data)), size)
+        t_pil += time.perf_counter() - t1
+        t_native += t1 - t0
+        key = f"{fmt} {mode} {wh[0]}x{wh[1]}"
+        if out is None or out.shape != ref.shape:
+            failures.append(f"N1: decode_preprocess gave "
+                            f"{None if out is None else out.shape} for {key}")
+            continue
+        errs[key] = float(np.abs(out - ref).max())
+        if not errs[key] < N_IMAGE_TOL:
+            failures.append(f"N1: {key} {errs[key]} >= {N_IMAGE_TOL}")
+    bad = native.decode_preprocess(b"\xff\xd8\xffgarbage", 32, mean, std)
+    if bad is not None:
+        failures.append("N1: bad JPEG bytes gave an image")
+    return {"max_abs_err": errs, "worst": max(errs.values(), default=None),
+            "tol": N_IMAGE_TOL, "native_s": t_native, "pil_s": t_pil}
+
+
+def n1_bpe(tmp, failures) -> dict:
+    """The native BPE ids against the Python path's on the fixture
+    vocabulary (written by make_tokenizer_fixture) over a long seeded
+    text of mostly unseen words."""
+    import numpy as np
+
+    from gill_tpu_torch.scripts import make_tokenizer_fixture as fixture
+    from gill_tpu_torch.tokenizer import GPT2BPETokenizer
+
+    d = os.path.join(tmp, "tok")
+    fixture.write_fixture(d)
+    rng = np.random.RandomState(17)
+    alphabet = list("abcdefghijklmnopqrstuvwxyz") + ["é", "ï", "北", "🙂"]
+    words = ["".join(rng.choice(alphabet, rng.randint(1, 12)))
+             for _ in range(N_BPE_WORDS)]
+    text = " ".join(words) + fixture.CORPUS
+    nat = GPT2BPETokenizer.from_pretrained_dir(d)
+    py = GPT2BPETokenizer.from_pretrained_dir(d)
+    py._native = None
+    if nat._native is None:
+        failures.append("N1: the BPE library built but the tokenizer took "
+                        "no engine")
+        return {}
+    t0 = time.perf_counter()
+    a = nat.encode(text, add_special_tokens=False)
+    t1 = time.perf_counter()
+    b = py.encode(text, add_special_tokens=False)
+    t2 = time.perf_counter()
+    if a != b:
+        at = next(i for i, (x, y) in enumerate(zip(a + [-1], b + [-2]))
+                  if x != y)
+        failures.append(f"N1: native BPE ids differ from Python's at {at}")
+    return {"chars": len(text), "ids": len(a), "ids_equal": a == b,
+            "native_s": t1 - t0, "python_s": t2 - t1}
+
+
+def _n_jpeg_split(root: str, n: int, wh=(500, 375)) -> None:
+    """A cc3m-layout split of `n` seeded JPEGs at CC3M's typical 500 x 375
+    (the stub set's PNGs are already 224², so the resample does no work
+    there), with the stub's 77 x 768 clip_embs and captions."""
+    import numpy as np
+
+    img_dir = os.path.join(root, "cc3m", "training")
+    os.makedirs(os.path.join(img_dir, "clip_embs"), exist_ok=True)
+    os.makedirs(os.path.join(root, "datasets"), exist_ok=True)
+    rng = np.random.RandomState(21)
+    with open(os.path.join(root, "datasets", "cc3m_train.tsv"), "w") as f:
+        f.write("caption\timage\n")
+        for i in range(n):
+            name = f"train_{i}.jpg"
+            with open(os.path.join(img_dir, name), "wb") as g:
+                g.write(_n_image_bytes("JPEG", wh, 300 + i))
+            np.save(os.path.join(img_dir, "clip_embs", name + ".npy"),
+                    rng.randn(77, 768).astype(np.float16))
+            f.write(f"a photo number {i}\t{name}\n")
+
+
+def n1_loader(tmp, failures) -> dict:
+    """Phase H1's training set (128 stub PNGs at 224², its OPT-sized
+    tokenizer), and as many CC3M-sized JPEGs, through the loader, native
+    and under GILL_NO_NATIVE_IMAGE=1, in turns: items/s of each epoch and
+    the batches held to each other."""
+    import numpy as np
+
+    from gill_tpu_torch.data.dataset import (DataLoader, TsvDataset,
+                                             make_stub_dataset)
+    from gill_tpu_torch.tokenizer import (GPT2BPETokenizer,
+                                          setup_gill_tokenizer)
+
+    stub, jpeg = os.path.join(tmp, "data"), os.path.join(tmp, "jpeg")
+    make_stub_dataset(stub, n=H_TRAIN_N, image_size=224, num_clip_tokens=77,
+                      gen_emb_dim=768, split="train")
+    _n_jpeg_split(jpeg, H_TRAIN_N)
+    write_opt_sized_tokenizer(os.path.join(tmp, "opt_tok"))
+    tok = GPT2BPETokenizer.from_pretrained_dir(os.path.join(tmp, "opt_tok"))
+    img_ids = setup_gill_tokenizer(tok, 8)
+
+    def epoch(root: str, no_native: bool):
+        saved = os.environ.pop("GILL_NO_NATIVE_IMAGE", None)
+        if no_native:
+            os.environ["GILL_NO_NATIVE_IMAGE"] = "1"
+        try:
+            ds = TsvDataset(os.path.join(root, "datasets", "cc3m_train.tsv"),
+                            os.path.join(root, "cc3m/training"), tok,
+                            img_ids, max_len=32, image_size=224)
+            t0 = time.perf_counter()
+            batches = list(DataLoader(ds, N_LOADER_BATCH, shuffle=False,
+                                      num_threads=N_LOADER_THREADS))
+            return batches, len(ds) / (time.perf_counter() - t0)
+        finally:
+            os.environ.pop("GILL_NO_NATIVE_IMAGE", None)
+            if saved is not None:
+                os.environ["GILL_NO_NATIVE_IMAGE"] = saved
+
+    rep = {"items": H_TRAIN_N, "threads": N_LOADER_THREADS}
+    for name, root in (("stub_png_224", stub), ("jpeg_500x375", jpeg)):
+        rates = {"native": [], "pil": []}
+        got = {}
+        for no_native in (False, True, True, False):
+            batches, rate = epoch(root, no_native)
+            key = "pil" if no_native else "native"
+            rates[key].append(rate)
+            got[key] = batches
+        err = max((float(np.abs(a["pixels"] - b["pixels"]).max())
+                   for a, b in zip(got["native"], got["pil"])),
+                  default=float("inf"))
+        same_tokens = all(np.array_equal(a["ret_tokens"], b["ret_tokens"])
+                          for a, b in zip(got["native"], got["pil"]))
+        if not err < N_IMAGE_TOL or not same_tokens:
+            failures.append(f"N1 {name}: loader batches native vs PIL: "
+                            f"pixels {err}, tokens equal {same_tokens}")
+        rep[name] = {"native_items_per_s": rates["native"],
+                     "pil_items_per_s": rates["pil"],
+                     "native_over_pil": max(rates["native"])
+                     / max(rates["pil"]),
+                     "pixels_max_abs_native_vs_pil": err}
+    return rep
+
+
+def n1_native(torch, tmp, failures) -> dict:
+    """N1: both native engines built with g++ here; where built, each
+    held to its Python / PIL counterpart, and the loader timed with and
+    without the image engine. An engine that does not build (no g++,
+    libjpeg or libpng) is reported, not failed, as gill_tpu does."""
+    from gill_tpu_torch import native
+
+    rep = {}
+    t0 = time.perf_counter()
+    libs = {"bpe": native.bpe_lib(), "image": native.image_lib()}
+    rep["build_s"] = time.perf_counter() - t0
+    for name, lib in libs.items():
+        rep[f"native_{name}"] = "built" if lib is not None else \
+            f"unavailable: {_last_line(native.build_error(name))}"
+        log(f"native_{name}: {rep[f'native_{name}']}")
+        if lib is None:
+            rep[f"native_{name}_error"] = _first_error(
+                native.build_error(name))
+    if libs["image"] is not None:
+        rep["image"] = n1_image(native, failures)
+    if libs["bpe"] is not None:
+        rep["bpe"] = n1_bpe(tmp, failures)
+    rep["loader"] = n1_loader(tmp, failures)
+    return rep
+
+
+def n2_kv_window(torch, dev, failures) -> dict:
+    """N2: profile_kv_window's perf phase, cut, on a random W8 OPT-6.7B:
+    tokens/s at N2_SEQS x the ladder off / on; the ladder on and off give
+    the same tokens at each max_seq, and the runs at other pool depths the
+    same tokens or a near-tie at each first divergence (K6 plans for the
+    pool, so its split, and the bf16 rounding of a row, follow max_seq)."""
+    from gill_tpu_torch.models import opt as opt_mod
+    from gill_tpu_torch.scripts import _serving as S
+    from gill_tpu_torch.scripts import profile_kv_window as kvw
+
+    params, cfg = _i_opt(torch, dev, torch.bfloat16)
+    lm8 = opt_mod.quantize_params_w8(params)
+    del params
+    torch.cuda.empty_cache()
+    reqs = serve_trace(N2_REQS)
+    for r in reqs:
+        r.max_new_tokens = min(r.max_new_tokens, N2_BUDGET)
+    rep = {"runs": []}
+    zero_launches()
+    for max_seq in N2_SEQS:
+        for ladder in (False, True):
+            # the three warm-up requests, not warmup()'s every wave and
+            # window: the kernels are built and the allocator warm by now
+            r = kvw.run_engine(lm8, cfg, reqs, max_seq=max_seq,
+                               ladder=ladder, device=dev, warmup=False,
+                               profile=False, **kvw.PERF_ENGINE)
+            rep["runs"].append(r)
+            log("phase N2 run:", json.dumps(
+                {k: v for k, v in r.items() if k != "tokens"}))
+    rep["launches"] = read_launches()
+    base = rep["runs"][0]
+    for r in rep["runs"]:
+        if r["generated"] != r["budget"]:
+            failures.append(f"N2 {r['max_seq']} {r['ladder']}: "
+                            f"{r['generated']} of {r['budget']} tokens")
+    for a, b in zip(rep["runs"][::2], rep["runs"][1::2]):
+        if a["tokens"] != b["tokens"]:
+            failures.append(f"N2 max_seq {a['max_seq']}: the ladder changes "
+                            f"the tokens")
+    prompts = {r.uid: r.prompt for r in reqs}
+    rep["divergences_vs_first"] = {}
+    for r in rep["runs"][2::2]:
+        div = S.token_divergences(lm8, cfg, base["tokens"], r["tokens"],
+                                  prompts)
+        rep["divergences_vs_first"][r["max_seq"]] = div
+        if S.unexplained(div):
+            failures.append(f"N2 max_seq {r['max_seq']}: tokens differ from "
+                            f"max_seq {base['max_seq']}'s beyond a near-tie: "
+                            f"{S.unexplained(div)}")
+    for name in ("w8_matmul", "prefix_decode_attention"):
+        if rep["launches"][name] <= 0:
+            failures.append(f"N2: {name} not launched")
+    rep["tokens_equal_all"] = all(r["tokens"] == base["tokens"]
+                                  for r in rep["runs"])
+    for r in rep["runs"]:
+        r.pop("tokens")
+    by = {(r["max_seq"], r["ladder"]): r["tokens_per_s"] for r in rep["runs"]}
+    rep["tokens_per_s"] = {f"{s} {g}": v for (s, g), v in by.items()}
+    rep["s2048_on_over_s512_on"] = by[(N2_SEQS[-1], "on")] / \
+        by[(N2_SEQS[0], "on")]
+    del lm8
+    torch.cuda.empty_cache()
+    return rep
+
+
+def phase_n(torch, dev):
+    """Phase N: N1 (native engines) and N2 (KV read window); N3 runs in
+    phase I1's ranks. Returns (report, failures)."""
+    failures = []
+    rep = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rep["n1"] = n1_native(torch, tmp, failures)
+    rep["n1"]["phase_s"] = time.perf_counter() - t0
+    log("phase N1:", json.dumps(rep["n1"]))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        rep["n2"] = n2_kv_window(torch, dev, failures)
+    rep["n2"]["phase_s"] = time.perf_counter() - t0
+    log("phase N2:", json.dumps(rep["n2"], default=str))
+    rep["device"] = smi_line()
+    return rep, failures
+
+
+def n3_collectives(torch, params, cfg, mesh, dev) -> dict:
+    """N3 on one tp rank: tp_collective_budget's one decode step over the
+    rank's engine (from the host tree), the launches of that step's run."""
+    from gill_tpu_torch.scripts import tp_collective_budget as tcb
+
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    rep = tcb.measure(params, cfg, mesh, dev, batch=N3_BATCH,
+                      max_seq=N3_MAX_SEQ, reps=N3_REPS)
+    rep["launches"] = read_launches()
+    rep["s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return rep
+
+
+def _n3_report(ranks, failures) -> dict:
+    """N3's checks: every rank's step issued 2 all-reduces a layer (the
+    attention and MLP blocks' row-parallel products) and nothing else, in
+    the activations' bf16, and its logits and tokens are the same with the
+    recorder open."""
+    n3 = [r["n3"] for r in ranks]
+    lead = n3[0]
+    rep = {k: lead[k] for k in ("tp", "batch", "layers", "hidden", "dtype",
+                                "backend", "rows", "collectives",
+                                "all_reduces", "mb_a_step", "mb_a_token",
+                                "step_ms", "collective_ms_a_step")}
+    rep["launches_per_rank"] = [r["launches"] for r in n3]
+    rep["s_per_rank"] = [r["s"] for r in n3]
+    for i, r in enumerate(n3):
+        want = 2 * r["layers"]
+        if r["collectives"] != want or r["all_reduces"] != want:
+            failures.append(f"N3 rank {i}: {r['collectives']} collectives "
+                            f"({r['all_reduces']} all-reduces), want {want}")
+        if not (r["tokens_equal_with_recorder"]
+                and r["logits_equal_with_recorder"]):
+            failures.append(f"N3 rank {i}: the recorder changed the step")
+        if [dict(x, ms=None) for x in r["rows"]] != \
+                [dict(x, ms=None) for x in lead["rows"]]:
+            failures.append(f"N3 rank {i}: other collectives than rank 0's")
+    log("phase N3:", json.dumps(rep, default=str))
+    return rep
+
+
+# ---------------------------------------------------------------------------
 # phase I: the distributed layer (slice 14)
 # ---------------------------------------------------------------------------
 
@@ -4167,6 +4566,12 @@ I_GROUP_TIMEOUT, I_PG_TIMEOUT = 600.0, 300.0
 # queued and one in flight; then a GILL engine on the fp32 tree, I4_GILL
 # embedding prompts
 I4_RATE, I4_SEED, I4_GILL = 8.0, 11, 6
+# the in-flight cancel's request runs I4_FLIGHT_BUDGET tokens, so that the
+# cancel, sent once its first chunk has streamed, lands while chunks are
+# left: within I_BUDGET (two chunks) the scheduler can have dispatched the
+# second before the first reaches the host, and the request then ends
+# with its whole budget whatever the cancel
+I4_FLIGHT_BUDGET = 5 * I_CHUNK
 # where the rank functions live and run (a CPU rehearsal at tiny widths
 # points these elsewhere)
 I_MODULE, I_DEVICE, I_CLI_EXTRA = "chip_smoke", "cuda", ()
@@ -4188,16 +4593,7 @@ def _i_opt(torch, dev, dtype, layers=None, seed=I_SEED, host=False):
     from gill_tpu_torch.config import OPTConfig
     from gill_tpu_torch.models import opt as opt_mod
     from gill_tpu_torch.nn.core import Init
-
-    class HostInit(Init):
-        def uniform(self, *a, **k):
-            return super().uniform(*a, **k).cpu()
-
-        def normal(self, *a, **k):
-            return super().normal(*a, **k).cpu()
-
-        def full(self, *a, **k):
-            return super().full(*a, **k).cpu()
+    from gill_tpu_torch.scripts.tp_collective_budget import HostInit
 
     cfg = OPTConfig.from_name("facebook/opt-6.7b")
     if layers is not None:
@@ -4336,6 +4732,9 @@ def _i4_lm_online(torch, eng, served):
         1 / I4_RATE, size=len(reqs)))
     queued = reqs[len(reqs) // 2].uid
     flight = max(reqs[:4], key=lambda r: r.max_new_tokens).uid
+    for r in reqs:
+        if r.uid == flight:
+            r.max_new_tokens = I4_FLIGHT_BUDGET
     handles, slog = {}, StreamLog()
 
     def cancel_after_first_token(h):
@@ -4373,10 +4772,12 @@ def _i4_lm_online(torch, eng, served):
     rep["uncancelled"] = len(rest)
     rep["first_divergence"] = {u: first_diff(got[u], want[u]) for u in rest
                                if got[u] != want[u]}
-    for name, u in (("queued", queued), ("in_flight", flight)):
-        rep[name] = {"uid": u, "tokens": len(got[u]),
-                     "budget": len(want[u]),
-                     "prefix_of_served": got[u] == want[u][:len(got[u])]}
+    # the served run's budget was I_BUDGET: compare the common prefix
+    for name, u, budget in (("queued", queued, len(want[queued])),
+                            ("in_flight", flight, I4_FLIGHT_BUDGET)):
+        n = min(len(got[u]), len(want[u]))
+        rep[name] = {"uid": u, "tokens": len(got[u]), "budget": budget,
+                     "prefix_of_served": got[u][:n] == want[u][:n]}
     return rep
 
 
@@ -4468,6 +4869,7 @@ def i1_rank(workdir: str):
     rep["bf16"] = _i_serve(torch, params, cfg, torch.bfloat16, mesh, dev,
                            online=lambda eng, served: _i4_lm_online(
                                torch, eng, served))
+    rep["n3"] = n3_collectives(torch, params, cfg, mesh, dev)
     del params
     torch.cuda.empty_cache()
     rep["bf16_max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -4648,6 +5050,7 @@ def phase_i1(torch, dev, tmp, failures):
         failures.append("I1: the two tp ranks' tokens differ")
     rep["tp2"] = per
     rep["i4"] = _i4_report(ranks, gill1, failures)
+    rep["n3"] = _n3_report(ranks, failures)
     rep["tp2_vs_tp1_tokens_per_s"] = (per[0]["bf16_tokens_per_s"]
                                       / ref16["tokens_per_s"])
 
@@ -5405,6 +5808,12 @@ def main() -> int:
     log("training phase H:", json.dumps(h_report))
     log("apps phase J7 prune:", json.dumps(h_report["h1"].get("j7_prune")))
     torch.cuda.empty_cache()
+    n_report, n_failures = phase_n(torch, dev)
+    failures += n_failures
+    log("native and tools phase N:", json.dumps(
+        {"n1_s": n_report["n1"]["phase_s"], "n2_s": n_report["n2"]["phase_s"],
+         "failures": len(n_failures)}))
+    torch.cuda.empty_cache()
     i_report, i_failures = phase_i(torch, dev)
     failures += i_failures
     log("distributed phase I:", json.dumps(i_report, default=str))
@@ -5434,6 +5843,11 @@ def main() -> int:
         # and each rank's in phase I4's online tp-2 serving (K1, K6)
         row["serving_probe_launches"] = serve_report["P"]["launches"][name]
         row["phase_e_launches"] = e_report["launches"][name]
+        # phase N2 (K4, K6) and each rank's N3 decode step (K6)
+        row["phase_n2_launches"] = n_report["n2"]["launches"][name]
+        row["phase_n3_launches_per_rank"] = [
+            r[name] for r in i_report.get("i1", {}).get("n3", {}).get(
+                "launches_per_rank", [])]
         i4 = i_report.get("i1", {}).get("i4", {})
         key = {"flash_attention": "k1_launches_per_rank",
                "prefix_decode_attention": "k6_launches_per_rank"}.get(name)

@@ -5,17 +5,20 @@ gill/data.py:70-144).
 Per item: image pixels (CLIP-normalized NHWC), the precomputed SD text
 embedding (num_clip_tokens, 768) from `<image_dir>/clip_embs/<image>.npy`,
 the caption tokenized to max_len with the appended [IMG0..n) run repaired
-if truncation clobbered it, and the caption length. gill_tpu's optional
-rendered caption image is left out: no caller asks for it.
+if truncation clobbered it, the caption length and, with
+`render_caption=True`, the decoded caption rendered as an image
+(`caption_img`, for TensorBoard grids; the trainer does not ask for it).
 
 Batches are numpy dicts on the host, loaded by a background thread pool
 that prefetches ahead of the step loop; the trainer moves them to the
 device (`train/trainer.py put_batch`). The same seed gives gill_tpu's
 batches: the same RandomState shuffle and per-item substitute streams.
-Images are decoded with PIL (gill_tpu's optional native C++ decoder is
-part of the JAX package; with GILL_NO_NATIVE_IMAGE=1 gill_tpu decodes
-with PIL too). Bad samples retry with a random substitute (reference
-gill/data.py:141-144).
+JPEG and PNG images are decoded and preprocessed by the native C++ engine
+(`gill_tpu_torch.native.decode_preprocess`, gill_tpu's arithmetic: its
+resample is within ~2/255 of PIL's), on by default as in gill_tpu;
+GILL_NO_NATIVE_IMAGE=1 turns it off, and without the engine (no g++,
+libjpeg or libpng) the loader says so once and decodes with PIL. Bad
+samples retry with a random substitute (reference gill/data.py:141-144).
 """
 
 from __future__ import annotations
@@ -33,10 +36,12 @@ from gill_tpu_torch.utils import image as image_utils
 
 
 class TsvDataset:
+    _warned_native_fallback = False
+
     def __init__(self, tsv_path: str, image_dir: str, tokenizer,
                  img_token_ids: List[int], max_len: int = 32,
                  image_size: int = 224, num_clip_tokens: int = 77,
-                 gen_emb_dim: int = 768):
+                 gen_emb_dim: int = 768, render_caption: bool = False):
         self.image_dir = image_dir
         self.tokenizer = tokenizer
         self.img_token_ids = list(img_token_ids)
@@ -44,6 +49,8 @@ class TsvDataset:
         self.image_size = image_size
         self.num_clip_tokens = num_clip_tokens
         self.gen_emb_dim = gen_emb_dim
+        self.render_caption = render_caption
+        self._use_native = os.environ.get("GILL_NO_NATIVE_IMAGE") != "1"
 
         self.images: List[str] = []
         self.captions: List[str] = []
@@ -64,8 +71,11 @@ class TsvDataset:
         emb_path = os.path.join(self.image_dir, "clip_embs",
                                 self.images[idx] + ".npy")
 
-        with Image.open(image_path) as img:
-            pixels = image_utils.clip_preprocess(img, self.image_size)
+        pixels = self._native_pixels(image_path) if self._use_native \
+            else None
+        if pixels is None:
+            with Image.open(image_path) as img:
+                pixels = image_utils.clip_preprocess(img, self.image_size)
 
         clip_emb = np.load(emb_path, allow_pickle=True)
         clip_emb = np.asarray(clip_emb, np.float32)[: self.num_clip_tokens]
@@ -90,7 +100,34 @@ class TsvDataset:
             "gen_len": np.int32(caption_len),
             "clip_emb": clip_emb,
         }
+        if self.render_caption:
+            decoded = self.tokenizer.decode(tokens)
+            item["caption_img"] = image_utils.create_image_of_text(
+                decoded.encode("ascii", "ignore"), width=self.image_size)
         return item
+
+    def _native_pixels(self, image_path: str):
+        """The native engine's pixels, or None for PIL to decode: where the
+        engine is unavailable (said once, then PIL for every item), the
+        file is not a JPEG / PNG, or its decode fails."""
+        from gill_tpu_torch import native
+
+        if not native.image_engine_available():
+            self._use_native = False
+            if not TsvDataset._warned_native_fallback:
+                TsvDataset._warned_native_fallback = True
+                print("gill_tpu_torch: native image engine unavailable; "
+                      "using PIL (GILL_NO_NATIVE_IMAGE=1 silences this)",
+                      flush=True)
+            return None
+        with open(image_path, "rb") as f:
+            raw = f.read()
+        try:
+            return native.decode_preprocess(
+                raw, self.image_size, image_utils.CLIP_MEAN.reshape(-1),
+                image_utils.CLIP_STD.reshape(-1))
+        except (ValueError, RuntimeError):
+            return None
 
     def get(self, idx: int, rng: Optional[np.random.RandomState] = None):
         """Load with infinite retry on bad samples (random substitute)."""

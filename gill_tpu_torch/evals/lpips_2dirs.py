@@ -7,11 +7,11 @@
 Images are resized to 256 x 256 (bilinear) and scaled to [-1, 1]; the
 per-file scores and their average are written to --out in the same lines
 as evals/lpips_2dirs.py. The weights are the same `.npz` (`conv{i}_w` as
-(kh, kw, cin, cout), `conv{i}_b`, `lin{i}_w`, from
-scripts/convert_lpips_weights.py), transposed here to PyTorch's (cout,
-cin, kh, kw); without them the script exits with status 2. The
-convolutions are `F.conv2d` and `F.max_pool2d` in NCHW, fp32 (TF32 off),
-on the card unless `--device cpu` is given.
+(kh, kw, cin, cout), `conv{i}_b`, `lin{i}_w`, written by `python -m
+gill_tpu_torch.scripts.convert_lpips_weights`), transposed here to
+PyTorch's (cout, cin, kh, kw); without them the script exits with
+status 2. The convolutions are `F.conv2d` and `F.max_pool2d` in NCHW,
+fp32 (TF32 off), on the card unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -71,7 +71,8 @@ def load_lpips_weights(path: str, device="cuda"):
     convolutions as (cout, cin, kh, kw)."""
     if not path.endswith(".npz"):
         raise ValueError(f"unsupported weights file {path}; see "
-                         f"scripts/convert_lpips_weights.py")
+                         f"python -m gill_tpu_torch.scripts."
+                         f"convert_lpips_weights")
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
@@ -123,7 +124,8 @@ def main(argv=None):
 
     if not args.lpips_weights or not os.path.exists(args.lpips_weights):
         print("ERROR: LPIPS requires pretrained AlexNet+calibration weights. "
-              "Convert them once with scripts/convert_lpips_weights.py and "
+              "Convert them once with `python -m gill_tpu_torch.scripts."
+              "convert_lpips_weights` and "
               "pass --lpips-weights (or set GILL_TPU_LPIPS_WEIGHTS).")
         sys.exit(2)
     dev = resolve_device(args.device)

@@ -27,16 +27,68 @@ or an axis of size 1) every function returns its input. Only `all_reduce`, `broa
 `broadcast_tick` and `all_status` are the online engines' control channel
 (serve/online.py): rank 0's scheduling decisions for one chunk boundary
 to every rank, and every rank's health after it.
+
+`record_collectives()` counts every collective these functions issue
+while it is open (kind, dtype, bytes a rank hands in, group size), for
+scripts/tp_collective_budget.py. It changes nothing; while none is open
+a collective pays one test of a module global for it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+from collections import Counter
 from typing import List, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+
+class CollectiveRecorder:
+    """The collectives issued while `record_collectives()` was open:
+    `counts` maps (kind, dtype, bytes, group size) to a count, bytes being
+    what this rank hands in (for an all-gather, its own part)."""
+
+    def __init__(self):
+        self.counts: Counter = Counter()
+
+    def add(self, kind: str, t: torch.Tensor, group):
+        self.counts[(kind, str(t.dtype).split(".")[-1],
+                     t.numel() * t.element_size(),
+                     dist.get_world_size(group))] += 1
+
+    def total(self, kind: Optional[str] = None) -> int:
+        return sum(n for k, n in self.counts.items()
+                   if kind is None or k[0] == kind)
+
+    def rows(self) -> List[dict]:
+        """One row a (kind, dtype, bytes, group size), largest count
+        first."""
+        return [{"kind": k, "dtype": d, "bytes": b, "group": g, "count": n}
+                for (k, d, b, g), n in sorted(
+                    self.counts.items(), key=lambda kv: (-kv[1], kv[0]))]
+
+
+_RECORDER: Optional[CollectiveRecorder] = None
+
+
+def _record(kind: str, t: torch.Tensor, group=None):
+    if _RECORDER is not None:
+        _RECORDER.add(kind, t, group)
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Counts the collectives of this module while open; yields the
+    `CollectiveRecorder`."""
+    global _RECORDER
+    prev, _RECORDER = _RECORDER, CollectiveRecorder()
+    try:
+        yield _RECORDER
+    finally:
+        _RECORDER = prev
 
 
 def model_group(mesh):
@@ -58,6 +110,7 @@ class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
+        _record("all_reduce", g, ctx.group)
         dist.all_reduce(g, group=ctx.group)
         return g, None
 
@@ -66,6 +119,7 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         y = x.contiguous().clone()
+        _record("all_reduce", y, group)
         dist.all_reduce(y, group=group)
         return y
 
@@ -82,6 +136,7 @@ def _all_gather_rows(x, group, counts=None):
     if x.shape[0] < big:
         x = torch.cat([x, x.new_zeros((big - x.shape[0], *x.shape[1:]))])
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    _record("all_gather", x, group)
     dist.all_gather(parts, x, group=group)
     if counts is None:
         return torch.cat(parts)
@@ -123,6 +178,7 @@ def reduce_from_model(x, mesh):
     if _grad_path(x):
         return _ReduceFromModel.apply(x, group)
     x = x.contiguous()
+    _record("all_reduce", x, group)
     dist.all_reduce(x, group=group)
     return x
 
@@ -152,6 +208,7 @@ def exchange_first_rows(x, mesh, send: bool, receive: bool):
         return x
     first = x[:1].contiguous()
     parts = [torch.empty_like(first) for _ in range(mesh.dp)]
+    _record("all_gather", first, group)
     dist.all_gather(parts, first, group=group)
     out = x[1:] if send else x
     if receive:
@@ -166,6 +223,7 @@ def global_count(n: torch.Tensor, mesh) -> torch.Tensor:
     if group is None:
         return n
     n = n.clone()
+    _record("all_reduce", n, group)
     dist.all_reduce(n, group=group)
     return n
 
@@ -183,6 +241,7 @@ def sum_over_data(tensors: List[torch.Tensor], mesh) -> List[torch.Tensor]:
         by_dtype.setdefault(t.dtype, []).append(i)
     for idx in by_dtype.values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        _record("all_reduce", flat, group)
         dist.all_reduce(flat, group=group)
         lo = 0
         for i in idx:
@@ -204,13 +263,15 @@ def gather_rows(x, mesh, group=None) -> np.ndarray:
     n = dist.get_world_size(group)
     t = torch.from_numpy(np.ascontiguousarray(arr))
     sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(n)]
-    dist.all_gather(sizes, torch.tensor([t.shape[0]], dtype=torch.int64),
-                    group=group)
+    mine = torch.tensor([t.shape[0]], dtype=torch.int64)
+    _record("all_gather", mine, group)
+    dist.all_gather(sizes, mine, group=group)
     sizes = [int(s) for s in sizes]
     big = max(sizes)
     if t.shape[0] < big:
         t = torch.cat([t, t.new_zeros((big - t.shape[0], *t.shape[1:]))])
     parts = [torch.empty_like(t) for _ in range(n)]
+    _record("all_gather", t, group)
     dist.all_gather(parts, t, group=group)
     return torch.cat([p[:s] for p, s in zip(parts, sizes)]).numpy()
 
@@ -226,6 +287,7 @@ def broadcast_str(s: Optional[str], src: int = 0, limit: int = 4096) -> str:
         if len(enc) > limit:
             raise ValueError(f"{len(enc)} bytes exceed {limit}")
         buf[:len(enc)] = torch.frombuffer(bytearray(enc), dtype=torch.uint8)
+    _record("broadcast", buf)
     dist.broadcast(buf, src=src)
     return bytes(buf[buf != 0].tolist()).decode()
 
@@ -236,6 +298,7 @@ def all_equal(t: torch.Tensor, group=None) -> bool:
     if not dist.is_initialized():
         return True
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    _record("all_gather", t, group)
     dist.all_gather(parts, t.contiguous(), group=group)
     return all(torch.equal(p, parts[0]) for p in parts)
 
@@ -257,9 +320,11 @@ def broadcast_tick(tick: Optional[dict], tensors: List[torch.Tensor], group,
         n = torch.tensor([buf.numel()], dtype=torch.int64)
     else:
         n = torch.zeros(1, dtype=torch.int64)
+    _record("broadcast", n, group)
     dist.broadcast(n, src=src, group=group)
     if rank != src:
         buf = torch.empty(int(n), dtype=torch.uint8)
+    _record("broadcast", buf, group)
     dist.broadcast(buf, src=src, group=group)
     head = json.loads(bytes(buf.numpy()).decode())
     out = []
@@ -267,6 +332,7 @@ def broadcast_tick(tick: Optional[dict], tensors: List[torch.Tensor], group,
         t = (tensors[i].to(device).contiguous() if rank == src
              else torch.empty(shape, dtype=getattr(torch, dtype),
                               device=device))
+        _record("broadcast", t, group)
         dist.broadcast(t, src=src, group=group)
         out.append(t)
     return head["tick"], out
@@ -281,6 +347,7 @@ def all_status(msg: str, group, limit: int = 512) -> List[str]:
     if enc:
         buf[:len(enc)] = torch.frombuffer(bytearray(enc), dtype=torch.uint8)
     parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+    _record("all_gather", buf, group)
     dist.all_gather(parts, buf, group=group)
     return [bytes(p[p != 0].tolist()).decode(errors="replace")
             for p in parts]

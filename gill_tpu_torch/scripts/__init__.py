@@ -12,5 +12,9 @@ The data and decision scripts (extract_img_embs, preprocess_sd_embeddings,
 generate_sd_p2_images, train_decision_classifier, process_p2_annotations,
 prune_model_ckpt) and validate_real_weights keep their originals' flags,
 files and formats; those that run a model take `--device` (the card
-unless `--device cpu`).
+unless `--device cpu`). So do the tools make_tokenizer_fixture (an output
+directory argument) and convert_lpips_weights (the published torch state
+dicts in, no `lpips` package), and the serving questions profile_kv_window
+(the read ladder against the pool provisioned) and tp_collective_budget
+(a tensor-parallel decode step's collectives, counted as issued).
 """

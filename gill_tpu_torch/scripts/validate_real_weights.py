@@ -327,7 +327,8 @@ def check_lpips(args):
     if not path or not os.path.exists(path):
         return _skip("no LPIPS weights (--lpips-weights / "
                      "GILL_TPU_LPIPS_WEIGHTS; build with "
-                     "scripts/convert_lpips_weights.py)")
+                     "python -m gill_tpu_torch.scripts."
+                     "convert_lpips_weights)")
     from gill_tpu_torch.evals.lpips_2dirs import (load_lpips_weights,
                                                   lpips_distance)
 

@@ -3,9 +3,11 @@ OPT tokenizer in gill_tpu/tokenizer.py, the part the inference path uses).
 
 Given the standard `vocab.json` + `merges.txt` it reproduces the HF OPT
 tokenizer; `GPT2BPETokenizer.tiny()` builds an in-memory byte-level
-vocabulary (no merges) for tests. OPT conventions: "<s>"=0, "<pad>"=1,
-"</s>"=2, "<unk>"=3; bos == eos == "</s>"; added tokens ("<|image|>",
-"[IMG0..n)") are appended at the end of the vocabulary. A CPU test holds
+vocabulary (no merges) for tests. Each word's merges run in the native
+C++ engine (`gill_tpu_torch.native`, as gill_tpu's do) where g++ builds
+it, else in Python; both give the same ids. OPT conventions: "<s>"=0,
+"<pad>"=1, "</s>"=2, "<unk>"=3; bos == eos == "</s>"; added tokens
+("<|image|>", "[IMG0..n)") are appended at the end of the vocabulary. A CPU test holds
 its ids and decoded strings equal to gill_tpu's tokenizer.
 
 `CLIPBPETokenizer` is Stable Diffusion's prompt tokenizer (CLIP's BPE:
@@ -22,6 +24,8 @@ from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import regex as re
+
+from gill_tpu_torch.native import get_bpe_engine
 
 # GPT-2's tokenization regex.
 _PAT = re.compile(
@@ -87,6 +91,10 @@ class GPT2BPETokenizer:
         self.bpe_ranks = dict(zip(merges, range(len(merges))))
         self._bpe_cache: Dict[str, str] = {}
         self._id_cache: Dict[str, List[int]] = {}
+
+        # The native (C++) merge engine for the hot path; None -> the
+        # Python BPE below (no compiler, no merges, or an exotic vocab).
+        self._native = get_bpe_engine(self.encoder, self.bpe_ranks)
 
         self.bos_token, self.eos_token = bos_token, eos_token
         self.unk_token = unk_token
@@ -175,8 +183,12 @@ class GPT2BPETokenizer:
             if cached is not None:
                 ids.extend(cached)
                 continue
-            out = [self.encoder.get(piece, unk_id)
-                   for piece in self._bpe(tok).split(" ")]
+            if self._native is not None:
+                out = self._native.encode(
+                    [self.encoder.get(c, unk_id) for c in tok])
+            else:
+                out = [self.encoder.get(piece, unk_id)
+                       for piece in self._bpe(tok).split(" ")]
             self._id_cache[tok] = out
             ids.extend(out)
         return ids

@@ -25,6 +25,7 @@ from PIL import Image
 
 import torch_app_models as apps
 from test_demo_gradio import _FakeGradio
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

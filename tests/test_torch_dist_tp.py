@@ -10,8 +10,11 @@ tolerance); at tp 2
 `DecodeEngine(mesh=)` (run with a registered prefix, and run_pipelined)
 and `GillDecodeEngine(mesh=)` (an embedding prefix) give tokens equal to
 gill_tpu's engines, the GILL engine's [IMG] hidden runs within 2e-4, and
-every rank returns the same. W8 leaves and an int8 pool under a mesh
-raise with gill_tpu's messages."""
+every rank returns the same. One decode step under the collective
+recorder (scripts/tp_collective_budget.py) issues two fp32 all-reduces a
+layer of (slots, hidden) over the tp ranks and nothing else, its logits
+and tokens unchanged by the recorder. W8 leaves and an int8 pool under a
+mesh raise with gill_tpu's messages."""
 
 import jax
 import jax.numpy as jnp
@@ -132,6 +135,15 @@ def test_tp_decode_and_engines_match_gill_tpu(ref, tmp_path, tp):
                                        atol=TOL)
         for k in ("tokens", "hidden"):
             np.testing.assert_array_equal(out[k], res[0][k])
+        c = out["collectives"]
+        assert [{k: v for k, v in row.items() if k != "ms"}
+                for row in c["rows"]] == [{
+                    "kind": "all_reduce", "dtype": "float32",
+                    "bytes": 3 * OPT["hidden_size"] * 4, "group": tp,
+                    "count": 2 * OPT["num_layers"]}]
+        assert c["collectives"] == c["all_reduces"] == 2 * OPT["num_layers"]
+        assert c["tokens_equal_with_recorder"]
+        assert c["logits_equal_with_recorder"]
     assert any(65 in g["tokens"] for g in ref["gill"].values())
 
 

@@ -21,6 +21,7 @@ from gill_tpu_torch import config as tcfg
 from gill_tpu_torch.models import opt as topt
 from gill_tpu_torch.serve.engine import DecodeEngine, ServeRequest
 from gill_tpu_torch.weights.from_jax import opt_from_jax
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 CFG = OPTConfig(num_layers=2, hidden_size=64, ffn_dim=128, num_heads=4,
                 vocab_size=128, max_positions=256, word_embed_proj_dim=64)

@@ -28,6 +28,7 @@ import torch
 from PIL import Image
 
 import torch_app_models as apps
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 STEPS = 2
 

@@ -16,6 +16,7 @@ from jax.experimental.pallas import tpu as pltpu
 from gill_tpu.models.sd import unet as junet
 from gill_tpu.ops.geglu import geglu_ff as pallas_geglu_ff
 from gill_tpu_torch.ops import geglu as tgeglu
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

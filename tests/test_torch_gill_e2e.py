@@ -22,7 +22,8 @@ import pytest
 import torch
 from PIL import Image
 
-from gill_tpu_torch.weights.from_jax import gill_params_from_jax, sd_params_from_jax
+from gill_tpu_torch.weights.from_jax import gill_params_from_jax, tree_to_numpy
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -63,7 +64,14 @@ def ckpt_dir(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def models(ckpt_dir):
+    """Both packages' `load_gill` on the directory; the LM, CLIP and
+    adapters carried from gill_tpu into the port, the tiny SD the other
+    way: gill_tpu's pipeline is built as its load_gill builds it
+    (GILL_TPU_TINY_SD=1), over the port's SD parameters (gill_tpu's eager
+    UNet init costs ~20 s)."""
     from gill_tpu.api import load_gill as jload_gill
+    from gill_tpu.models.sd.pipeline import StableDiffusionPipeline as JPipe
+    from gill_tpu.models.sd.pipeline import tiny_sd_config
     from gill_tpu_torch.api import load_gill as tload_gill
 
     d = ckpt_dir
@@ -71,7 +79,7 @@ def models(ckpt_dir):
     os.environ["GILL_TPU_TINY_SD"] = "1"
     try:
         jm = jload_gill(str(d), decision_model_fn="decision_model.npz",
-                        load_sd=True, dtype=jnp.float32)
+                        load_sd=False, dtype=jnp.float32)
         tm = tload_gill(str(d), device="cpu",
                         decision_model_fn="decision_model.npz", load_sd=True,
                         dtype=torch.float32)
@@ -81,7 +89,11 @@ def models(ckpt_dir):
         else:
             os.environ["GILL_TPU_TINY_SD"] = old
     tm.params = gill_params_from_jax(jax.device_get(jm.params))
-    tm.sd_pipe.params = sd_params_from_jax(jax.device_get(jm.sd_pipe.params))
+    scfg = tiny_sd_config()
+    scfg.unet.cross_attention_dim = jm.core.cfg.gen_emb_dim
+    scfg.text.max_positions = jm.core.cfg.num_clip_tokens
+    jm.sd_pipe = JPipe(scfg, jax.tree_util.tree_map(
+        jnp.asarray, tree_to_numpy(tm.sd_pipe.params)))
     return jm, tm
 
 

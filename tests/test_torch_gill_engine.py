@@ -26,6 +26,7 @@ from gill_tpu_torch.serve.gill_engine import GillDecodeEngine, GillServeRequest
 from gill_tpu_torch.weights.from_jax import gill_params_from_jax
 
 from test_gill_forward import IMG_START, NUM_TOKENS, make_core
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

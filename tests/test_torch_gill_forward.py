@@ -20,6 +20,7 @@ from gill_tpu_torch import config as tcfg
 from gill_tpu_torch.models.gill import IGNORE, GILLCore as TCore
 from gill_tpu_torch.nn.core import Init, tree_leaves
 from gill_tpu_torch.weights import from_jax
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 OPT_TINY = dict(vocab_size=64, hidden_size=16, ffn_dim=32, num_layers=2,
                 num_heads=2, word_embed_proj_dim=16, max_positions=64)

@@ -39,6 +39,7 @@ from gill_tpu_torch.weights.from_jax import gill_params_from_jax
 
 from test_gill_forward import make_core
 from test_torch_gill_e2e import _image, ckpt_dir, models  # noqa: F401
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 TAP_ATOL = 2e-4
 WAIT = 300          # seconds any wait of a test may take before it fails

@@ -29,6 +29,7 @@ from gill_tpu.ops.ln_matmul import ln_matmul as pallas_ln_matmul
 from gill_tpu.ops.ln_matmul import ln_matmul_stacked as pallas_ln_stacked
 from gill_tpu_torch.ops import geglu as tgeglu
 from gill_tpu_torch.ops import ln_matmul as tln
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 

@@ -36,6 +36,7 @@ from PIL import Image
 
 import chip_smoke
 from gill_tpu_torch.weights.from_jax import tree_to_numpy
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 transformers = pytest.importorskip("transformers")
 

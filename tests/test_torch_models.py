@@ -29,6 +29,7 @@ from gill_tpu_torch.models import opt as topt
 from gill_tpu_torch.ops import sampling as tsampling
 from gill_tpu_torch.retrieval import RetrievalIndex as TIndex
 from gill_tpu_torch.weights import from_jax
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -14,6 +14,7 @@ import torch
 from gill_tpu.nn import core as jnn
 from gill_tpu_torch.nn import core as tnn
 from gill_tpu_torch.weights.from_jax import tree_from_jax
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

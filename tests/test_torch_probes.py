@@ -5,7 +5,9 @@ original script's rows (the same names, columns and JSON keys, with
 the module after an exception, and nothing is written without --out.
 """
 
+import contextlib
 import glob
+import io
 import json
 import os
 
@@ -17,6 +19,7 @@ from gill_tpu_torch.scripts import (attn_mxu_probe, attn_sweep, int8_probe,
                                     profile_ln_fuse, profile_prefix_decode,
                                     profile_sd, profile_sd_ablate,
                                     profile_specdec, w8_probe)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = tiny_unet_config()
@@ -52,14 +55,58 @@ TINY = {
 }
 
 
-def _run(name, capsys, argv=()):
+def _records():
+    return {p: os.path.getmtime(p)
+            for p in glob.glob(os.path.join(REPO, "*_PROBE.json"))}
+
+
+def _main(name, argv, cwd):
+    """`name`'s main(argv) in the working directory `cwd`: (exit code,
+    printed lines, the directory's listing after)."""
     mod, kw = TINY[name]
-    rc = mod.main(list(argv), device="cpu", **kw)
-    return rc, capsys.readouterr().out.splitlines()
+    here, buf = os.getcwd(), io.StringIO()
+    os.makedirs(cwd)
+    os.chdir(cwd)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(list(argv), device="cpu", **kw)
+    finally:
+        os.chdir(here)
+    return rc, buf.getvalue().splitlines(), sorted(os.listdir(cwd))
 
 
-def test_attn_mxu_probe_rows(capsys):
-    rc, lines = _run("attn_mxu_probe", capsys)
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Each probe run as a user runs it, once without --out and once with
+    it, each in an empty working directory (at the first test that asks
+    for it): {"rc", "lines", "listing", "out_rc", "out_listing", "rows",
+    "records_kept"}. The row tests read the first run's lines."""
+    done = {}
+
+    def run(name):
+        if name not in done:
+            d = tmp_path_factory.mktemp(name)
+            before = _records()
+            rc, lines, listing = _main(name, [], str(d / "plain"))
+            out = d / "out" / "rows.json"
+            out_rc, _, out_listing = _main(name, ["--out", str(out)],
+                                           str(d / "out"))
+            done[name] = {"rc": rc, "lines": lines, "listing": listing,
+                          "out_rc": out_rc, "out_listing": out_listing,
+                          "rows": json.loads(out.read_text())
+                          if out.exists() else None,
+                          "records_kept": _records() == before}
+        return done[name]
+    return run
+
+
+def _run(name, runs):
+    r = runs(name)
+    return r["rc"], r["lines"]
+
+
+def test_attn_mxu_probe_rows(runs):
+    rc, lines = _run("attn_mxu_probe", runs)
     assert rc == 0
     assert lines[0].startswith("# device: cpu")
     for line, name in zip(lines[1:], ("A QK bf16 (512,128)x(128,2048)",
@@ -68,8 +115,8 @@ def test_attn_mxu_probe_rows(capsys):
         assert "of peak" in line and "library" in line
 
 
-def test_attn_sweep_rows_follow_the_original(capsys):
-    rc, lines = _run("attn_sweep", capsys)
+def test_attn_sweep_rows_follow_the_original(runs):
+    rc, lines = _run("attn_sweep", runs)
     assert rc == 0
     names = ["current(auto 256xS)", "single-pass bq=256", "single-pass bq=512",
              "single-pass bq=1024", "bq=512 online bk=1024",
@@ -83,8 +130,8 @@ def test_attn_sweep_rows_follow_the_original(capsys):
         assert float(r.split("maxerr=")[1].split()[0]) < 1e-2
 
 
-def test_int8_probe_rows(capsys):
-    rc, lines = _run("int8_probe", capsys)
+def test_int8_probe_rows(runs):
+    rc, lines = _run("int8_probe", runs)
     assert rc == 0
     assert lines[1].startswith("mm 64x32x48: bf16 ")
     assert "TF/s" in lines[1] and "TOP/s" in lines[1]
@@ -93,8 +140,8 @@ def test_int8_probe_rows(capsys):
     assert "TOP/s" in lines[2] and "FAILED" not in lines[2]
 
 
-def test_profile_sd_rows(capsys):
-    rc, lines = _run("profile_sd", capsys)
+def test_profile_sd_rows(runs):
+    rc, lines = _run("profile_sd", runs)
     assert rc == 0
     assert lines[1].split() == ["component", "ms", "ms*layers"]
     for part in ("8x8/32 self-attn(S=64)", "8x8/32 cross-attn",
@@ -108,9 +155,9 @@ def test_profile_sd_rows(capsys):
     assert not any("chip" in ln for ln in lines)
 
 
-def test_profile_sd_ablate_rows(capsys):
+def test_profile_sd_ablate_rows(runs):
     orig = (unet_mod._tfm_block, unet_mod._spatial_tfm, unet_mod._resnet)
-    rc, lines = _run("profile_sd_ablate", capsys)
+    rc, lines = _run("profile_sd_ablate", runs)
     assert rc == 0
     assert [ln[:24].rstrip() for ln in lines[1:]] == [
         "baseline", "w/o self-attn", "w/o cross-attn", "w/o geglu-ff",
@@ -140,9 +187,9 @@ def test_profile_sd_ablate_restores_the_module_after_an_exception(
     assert unet_mod._tfm_block is orig
 
 
-def test_profile_ln_fuse_rows_and_restores_fuse_ln(capsys):
+def test_profile_ln_fuse_rows_and_restores_fuse_ln(runs):
     saved = unet_mod.FUSE_LN
-    rc, lines = _run("profile_ln_fuse", capsys)
+    rc, lines = _run("profile_ln_fuse", runs)
     assert rc == 0 and unet_mod.FUSE_LN == saved
     row = lines[1]
     assert row.startswith("8x8/32: fused ") and " plain " in row
@@ -153,8 +200,8 @@ def test_profile_ln_fuse_rows_and_restores_fuse_ln(capsys):
     assert lines[3].startswith("FULL UNET step (plain): ")
 
 
-def test_profile_prefix_decode_json_lines(capsys):
-    rc, lines = _run("profile_prefix_decode", capsys)
+def test_profile_prefix_decode_json_lines(runs):
+    rc, lines = _run("profile_prefix_decode", runs)
     assert rc == 0
     recs = [json.loads(ln) for ln in lines[1:]]
     assert [r["mix"] for r in recs] == ["full", "mixed", "halfpark"]
@@ -163,11 +210,11 @@ def test_profile_prefix_decode_json_lines(capsys):
                            "speedup"]
 
 
-def test_w8_probe_rows_follow_the_original(capsys):
+def test_w8_probe_rows_follow_the_original(runs):
     """The original's header and rows: the bf16 reference (2x bytes), then
     the kernel at every (block_n, block_k) `w8_plan` accepts at M = 8 (K
     512 takes stages of 128 and 256 rows), each with ms and GB/s."""
-    rc, lines = _run("w8_probe", capsys)
+    rc, lines = _run("w8_probe", runs)
     assert rc == 0
     assert lines[0].startswith("# device: cpu")
     assert lines[1].split() == ["shape", "config", "ms", "GB/s"]
@@ -181,11 +228,11 @@ def test_w8_probe_rows_follow_the_original(capsys):
         assert ms > 0 and gbs >= 0
 
 
-def test_profile_specdec_rows_follow_the_original(capsys):
+def test_profile_specdec_rows_follow_the_original(runs):
     """The original's lines (round ms, plain step ms, the acceptance table,
     the breakeven rate) from the port's round mechanics: k draft steps and
     one verify a round, on a W8 target and a draft of another width."""
-    rc, lines = _run("profile_specdec", capsys)
+    rc, lines = _run("profile_specdec", runs)
     assert rc == 0
     assert lines[0].startswith("# device: cpu")
     assert lines[1].startswith("spec round (K=4, custom W8 + custom draft): ")
@@ -204,17 +251,11 @@ def test_profile_specdec_rows_follow_the_original(capsys):
 
 
 @pytest.mark.parametrize("name", sorted(TINY))
-def test_probe_writes_nothing_without_out(name, tmp_path, monkeypatch,
-                                          capsys):
+def test_probe_writes_nothing_without_out(name, runs):
     """No file appears in the working directory, and the TPU records at the
     repository's root are left as they were; --out writes the rows."""
-    records = {p: os.path.getmtime(p)
-               for p in glob.glob(os.path.join(REPO, "*_PROBE.json"))}
-    monkeypatch.chdir(tmp_path)
-    rc, _ = _run(name, capsys)
-    assert rc == 0 and os.listdir(tmp_path) == []
-    out = tmp_path / "rows.json"
-    rc, _ = _run(name, capsys, ["--out", str(out)])
-    assert rc == 0 and os.listdir(tmp_path) == ["rows.json"]
-    assert isinstance(json.loads(out.read_text()), list)
-    assert records == {p: os.path.getmtime(p) for p in records}
+    r = runs(name)
+    assert r["rc"] == 0 and r["listing"] == []
+    assert r["out_rc"] == 0 and r["out_listing"] == ["rows.json"]
+    assert isinstance(r["rows"], list)
+    assert r["records_kept"]

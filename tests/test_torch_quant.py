@@ -27,6 +27,7 @@ from gill_tpu_torch.models.sd import unet as tunet
 from gill_tpu_torch.nn.core import Init, conv_weight_from_hwio
 from gill_tpu_torch.ops import quant as tq
 from gill_tpu_torch.weights import from_jax
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -16,6 +16,7 @@ from torch import nn as tnn
 import chip_smoke
 from gill_tpu_torch.nn.core import Init
 from gill_tpu_torch.weights.from_jax import tree_to_numpy
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _cores(taps):

@@ -26,6 +26,7 @@ from gill_tpu.weights.convert import safety_checker_from_torch as jconvert
 from gill_tpu_torch.models import safety as tsafety
 from gill_tpu_torch.weights.convert import safety_checker_from_torch
 from gill_tpu_torch.weights.from_jax import tree_from_jax, tree_to_numpy
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 pytest.importorskip("transformers")
 

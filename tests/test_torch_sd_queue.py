@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from gill_tpu_torch.serve.sd_queue import SDBatchQueue
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 class FakePipe:

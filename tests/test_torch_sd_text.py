@@ -31,6 +31,7 @@ from gill_tpu_torch.models.sd import vae as tvae
 from gill_tpu_torch.models.sd.pipeline import StableDiffusionPipeline
 from gill_tpu_torch.nn.core import Init
 from gill_tpu_torch.weights.from_jax import tree_to_numpy
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -21,6 +21,7 @@ from gill_tpu.serve.speculative import SpeculativeDecoder as JSpec
 from gill_tpu_torch import config as tcfg
 from gill_tpu_torch.serve.speculative import SpeculativeDecoder
 from gill_tpu_torch.weights.from_jax import opt_from_jax
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _cfg(dims=64):

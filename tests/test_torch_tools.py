@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import torch_app_models as apps
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 

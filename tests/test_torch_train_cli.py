@@ -39,6 +39,7 @@ from gill_tpu_torch.utils import meters as tmeters
 from gill_tpu_torch.utils import tb as ttb
 from gill_tpu_torch.weights import from_jax
 from test_torch_train_step import TC, make_batch, setup  # noqa: F401
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -214,7 +215,9 @@ def test_cli_trains_validates_and_checkpoints_on_cpu(tmp_path):
     root, runs = str(tmp_path / "data"), str(tmp_path / "runs")
     tdata.make_stub_dataset(root, n=8, image_size=16, split="train")
     tdata.make_stub_dataset(root, n=4, image_size=16, split="val")
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
+    # one intra-op thread, as tests/torch_threads.py gives this module
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO,
+               OMP_NUM_THREADS="1")
     res = subprocess.run(
         [sys.executable, "-m", "gill_tpu_torch.main",
          *_cli_args(root, runs, "smoke"), "--profile-steps", "2"],

@@ -18,6 +18,7 @@ from gill_tpu_torch.train import trainer as ttrainer
 from gill_tpu_torch.weights import from_jax
 from test_torch_train_step import (STEPS, TC, _assert_runs_match, _flat,  # noqa: F401
                                    run_jax, run_torch, setup)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def test_grad_accumulation_matches_optax_multisteps(setup):

@@ -40,6 +40,7 @@ from gill_tpu_torch.ops import attention as tattn
 from gill_tpu_torch.train import losses as tL
 from gill_tpu_torch.train import trainer as ttrainer
 from gill_tpu_torch.weights import from_jax
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 OPT_TINY = dict(vocab_size=64, hidden_size=16, ffn_dim=32, num_layers=2,
                 num_heads=2, word_embed_proj_dim=16, max_positions=96)

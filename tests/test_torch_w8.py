@@ -31,6 +31,7 @@ from gill_tpu_torch.nn import core as tnn
 from gill_tpu_torch.ops.w8_matmul import (w8_matmul, w8_matmul_ref,
                                           w8_matmul_stacked)
 from gill_tpu_torch.weights import from_jax
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 BF16_ULP = 2.0 ** -7
 

@@ -22,6 +22,7 @@ from gill_tpu.weights import loader as jload
 from gill_tpu_torch.weights import convert as tconv
 from gill_tpu_torch.weights import loader as tload
 from gill_tpu_torch.weights.from_jax import tree_from_jax, tree_to_numpy
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 transformers = pytest.importorskip("transformers")
 

@@ -177,6 +177,14 @@ def tp_serve(core_kw, seed: int, embs, num_words: int, trace, prefix,
         u: {"tokens": r["tokens"], "img_runs": np.asarray(r["img_runs"])}
         for u, r in geng.run([GillServeRequest(prefix_id=gpid, **c)
                               for c in gill_cases]).items()}
+
+    # one decode step under the collective recorder
+    # (scripts/tp_collective_budget.py)
+    from gill_tpu_torch.scripts import tp_collective_budget as tcb
+
+    res["collectives"] = tcb.measure(full["lm"], core.opt_cfg, mesh,
+                                     torch.device("cpu"), batch=3,
+                                     max_seq=32, reps=1)
     return res
 
 
